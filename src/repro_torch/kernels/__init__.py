@@ -1,0 +1,5 @@
+"""GEMM kernels of the port: the two hand-written Hopper kernels
+(``mlgemm`` -> ``csrc/mlgemm.cu``, ``ozgemm`` -> ``csrc/ozgemm.cu``), each
+beside its plain PyTorch version, plus the ``ref`` oracle and the blocked
+``ops`` loop.  Nothing here builds or imports a compiler at import time.
+"""
