@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py
 
-Phases, each of which ends the run with a non-zero exit if it fails:
+Phases, each of which ends the run with a non-zero exit if it fails (they
+run in the order 1-6, 8, 9, 7):
 
-  1. the card (name and power limit from nvidia-smi) and the build of both
-     hand-written kernels from csrc/ (nvcc, one process per source);
+  1. the card (name and power limit from nvidia-smi) and the build of every
+     hand-written kernel from csrc/ (nvcc, one process per source and limb
+     count, all at once), with registers and spills per kernel;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
-     kernel #1 (csrc/mlgemm.cu) at 512^3, a ragged 509x263x131, the
-     Hilbert gate's 32^3, an LU trailing update 1984x64x1984 and a
-     residual 2048x2048x4; kernel #2 (csrc/ozgemm.cu) at 512^3, 509x263x131
-     and the Hilbert 32^3, each with epilogues none, alpha and full;
-  3. the main path, with every launch counter set to 0 first: dd Rgemm
-     C = alpha*A@B + beta*C at n = 4096 through rgemm on backend
+     kernel #1 (csrc/mlgemm.cu) at dd at 512^3, a ragged 509x263x131, the
+     Hilbert gate's 32^3, an LU trailing update 1984x64x1984 and a residual
+     2048x2048x4, and at td and qd at 256^3, 509x263x131, the SDP stack
+     (104 x 50x50x50, A shared) and an rposv residual 104x104x1; kernel #2
+     (csrc/ozgemm.cu) at dd at 512^3, 509x263x131 and the Hilbert 32^3, at
+     td and qd at 256^3 and 509x263x131, each with epilogues none, alpha and
+     full, plus one batched call per tier; batched calls equal the looped
+     ones for both kernels at dd, td and qd; the elementwise kernels
+     (csrc/mpops.cu) at every tier on the shapes of the SDP loop;
+  3. the first main path, with every launch counter set to 0 first: dd
+     Rgemm C = alpha*A@B + beta*C at n = 4096 through rgemm on backend
      ozaki-pallas (kernel #2, fused drain) and on pallas (kernel #1), the
      two held within 16*k*2^-104 of each other;
   4. the Hilbert dd accuracy gate (<= 2^-100 against the exact Fraction
@@ -25,12 +32,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      factor, dd target, backend pallas), converged to a backward error
      <= 4 n u_dd, and an ill-conditioned n = 2048 system (singular values
      spanning 1e20) that escalates f64 -> dd, so that a dd rgetrf (block
-     64) runs inside rgesv;
-  7. the launch counts of phases 3-6 (each kernel must have run there),
-     then each kernel's time at the Rgemm shape beside its bound, its plain
-     version's time and output there (held bit for bit again), and (as
-     context only: no PyTorch call computes a dd GEMM) an f64
-     torch.matmul at the same shape.
+     64) runs inside rgesv; the launch counts of phases 3-6;
+  8. the second main path, counters set to 0 again: the upper rungs.  td
+     and qd Rgemm at n = 2048 on pallas and ozaki-pallas, within
+     16*k*ulp(tier) of each other; the td/qd Hilbert gates at n = 32 on both
+     kernels (2^-150, 2^-190); the rgesv ladder receipt of
+     tests/test_solve.py (Hilbert n = 26 formed in qd, target qd, backend
+     ozaki-pallas: escalations exactly f64 -> dd -> td, no qd factor);
+  9. the SDP interior-point solver on the card, backend pallas: SDPLIB
+     theta1's shape (theta_problem(50, 0.085)) at binary128, held to the
+     Table V receipts of tests/test_sdp.py (the primal infeasibility to
+     the reference's own value on this problem), and at binary128+, whose
+     gap must reach 1e-2 of it with the primal objective within 1e-18; the
+     degenerate binary128+ receipt and the binary192 receipt of
+     tests/test_sdp.py; then the launch counts of phases 8-9 (every
+     td/qd instantiation must have run);
+  7. each kernel's time beside its bound: the dd kernels at 4096^3 (their
+     plain versions there too, held bit for bit again), the td/qd kernels
+     at 2048^3 (plain versions at 256^3), the elementwise kernels on the
+     SDP's pairwise product, and (as context only: no PyTorch call computes
+     a multi-limb GEMM) an f64 torch.matmul at the same shapes.
 
 The last two lines are a JSON object {"kernels": [...]} and
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository's
@@ -38,13 +59,15 @@ src/repro_torch beside it, the script exits non-zero and prints neither.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 U_DD = 2.0 ** -106
-ULP_DD = 2.0 ** -104
+ULP = {"dd": 2.0 ** -104, "td": 2.0 ** -155, "qd": 2.0 ** -205}
+NLIMBS = {"dd": 2, "td": 3, "qd": 4}
 
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds: f64 outside the
 # tensor cores, and HBM3 bandwidth
@@ -57,6 +80,38 @@ MLGEMM_OPS_PER_FMA = 51
 OZGEMM_OPS_PER_SLICE = 23
 ADD_FLOAT_OPS = 10      # dd.add_float, one fold per output per diagonal
 DD_MUL_OPS, DD_ADD_OPS = 31, 20
+# theta1's shape floors the primal infeasibility above the 1e-20 of
+# tests/test_sdp.py's theta8 receipt: the reference itself, binary128
+# solve_sdp on theta_problem(50, 0.085, seed=0) (CPU, backend xla, 80
+# iterations, tools/sdp_reference.py), ends at pfeas 2.5688e-20 with gap
+# 7.51e-22 and dfeas 2.77e-32, so the port is held to that value there
+THETA1_REF_PFEAS = 2.5688e-20
+
+
+# f64 operations of the k-limb recipes in csrc/ml_device.cuh (two_sum 6,
+# products 1 each; the operand splits are left out, so the bound stays a
+# least time)
+def renorm_ops(n_terms, k):
+    """renorm<K, N>: three sweeps of two two_sum passes, the tail adds, a
+    final vecsum + compress over k."""
+    return 3 * 2 * (n_terms - 1) * 6 + (n_terms - k) + 2 * (k - 1) * 6
+
+
+def mul_ops(k):
+    pairs = k * (k - 1) // 2
+    return 5 * pairs + k + renorm_ops(5 * pairs + k, k)
+
+
+def add_ops(k):
+    return renorm_ops(2 * k, k)
+
+
+def fma_ops(k):
+    return MLGEMM_OPS_PER_FMA if k == 2 else mul_ops(k) + add_ops(k)
+
+
+def tier_mul_ops(k):
+    return DD_MUL_OPS if k == 2 else mul_ops(k)
 
 
 def log(msg):
@@ -66,6 +121,25 @@ def log(msg):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+def ptxas_summary(text):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    nvcc -Xptxas -v output."""
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spill)
+            name = None
+    return out
 
 
 def main() -> int:
@@ -87,13 +161,24 @@ def main() -> int:
                                            hilbert_tier, max_rel_err)
     from repro_torch.core.blas import rgemm, rlange
     from repro_torch.core.linalg import apply_pivots, lu_solve, rgetrf
+    from repro_torch.core.sdp import random_sdp, solve_sdp, theta_problem
     from repro_torch.gemm import make_plan, matmul
-    from repro_torch.kernels import _build, mlgemm, ozgemm
+    from repro_torch.kernels import _build, mlgemm, mpops, ozgemm
     from repro_torch.solve import rgesv
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(20230607)
+    counters = {"mlgemm": mlgemm.launches, "ozgemm": ozgemm.launches,
+                "mpops": mpops.launches}
+
+    def reset_counts():
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {name: dict(c) for name, c in counters.items()}
 
     def sync_time(fn):
         torch.cuda.synchronize()
@@ -108,11 +193,21 @@ def main() -> int:
                          dtype=torch.float64) * 2.0 ** -53
         return dd.from_hi_lo(hi, lo)
 
-    def dd_scalar(num, den):
-        one = dd.from_float(torch.tensor(float(num), dtype=torch.float64,
-                                         device=dev))
-        return dd.div(one, dd.from_float(torch.tensor(
-            float(den), dtype=torch.float64, device=dev)))
+    def rand_tier(shape, p):
+        """A normalized tier value with signal in every limb."""
+        x = mp.from_float(torch.randn(shape, generator=gen, device=dev,
+                                      dtype=torch.float64), p)
+        for i in range(1, NLIMBS[p]):
+            x = mp.add(x, mp.from_float(torch.randn(
+                shape, generator=gen, device=dev,
+                dtype=torch.float64) * 2.0 ** (-53 * i), p))
+        return x
+
+    def scalar(num, den, p="dd"):
+        one = mp.from_float(torch.tensor(float(num), dtype=torch.float64,
+                                         device=dev), p)
+        return mp.div(one, mp.from_float(torch.tensor(
+            float(den), dtype=torch.float64, device=dev), p))
 
     # ---- 1. the card and the build -------------------------------------
     smi = subprocess.run(
@@ -122,77 +217,153 @@ def main() -> int:
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     logs, t_build = sync_time(_build.build_all)
-    log(f"phase 1: built {', '.join(_build.SOURCES)} in {t_build:.2f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line:
-                log(f"phase 1: {name}: {line.strip()}")
+    log(f"phase 1: built {', '.join(_build.SOURCES)} at limb counts "
+        f"{_build.LIMBS} in {t_build:.2f} s ({len(logs)} nvcc processes; "
+        f"nvcc {' '.join(_build.NVCC_FLAGS)} -DKLIMBS=k)")
+    for (name, nl), text in sorted(logs.items()):
+        for kern, regs, st, ld in ptxas_summary(text):
+            log(f"phase 1: {name} k={nl} {kern}: {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
 
     # ---- 2. kernels against their plain versions, bit for bit ----------
     t2 = time.perf_counter()
-    max_err = {"mlgemm": 0.0, "ozgemm": 0.0}
+    max_err = {}
 
-    def compare(name, got_limbs, want):
+    def compare(key, got_limbs, want):
+        want_l = mp.limbs(want)
         err = max(float(torch.max(torch.abs(g - w))) if g.numel() else 0.0
-                  for g, w in zip(got_limbs, mp.limbs(want)))
-        same = all(torch.equal(g, w) for g, w in zip(got_limbs,
-                                                     mp.limbs(want)))
-        max_err[name] = max(max_err[name], err)
+                  for g, w in zip(got_limbs, want_l))
+        same = all(g.shape == w.shape and torch.equal(g, w)
+                   for g, w in zip(got_limbs, want_l))
+        max_err[key] = max(max_err.get(key, 0.0), err)
         return same, err
 
-    # at the shapes the main path gives the kernels: square, ragged, the
-    # Hilbert gate's 32^3 (its own inputs), the first LU trailing update
-    # (1984x64x1984) and a residual A @ X (2048x2048x4)
+    def hold(key, label, got_limbs, want):
+        same, err = compare(key, got_limbs, want)
+        log(f"phase 2: {key} {label} kernel == plain: {same} "
+            f"(max abs diff {err:.3e})")
+        check(same, f"{key} {label} differs from its plain version")
+
+    def plain(fn, *args, **kw):
+        with mp.plain_ops():
+            return fn(*args, **kw)
+
+    def oz_call(a, b, p, epi, alpha=None, beta=None, c=None):
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        plan = make_plan(m, k, n, precision=p, backend="ozaki-pallas",
+                         platform="cuda")
+        ops = [*mp.limbs(a), *mp.limbs(b)]
+        kw = {}
+        if epi != "none":
+            ops += [l.reshape(1, 1) for l in mp.limbs(alpha)]
+            kw["alpha"] = mp.map_limbs(lambda l: l.reshape(1, 1), alpha)
+        if epi == "full":
+            ops += [*[l.reshape(1, 1) for l in mp.limbs(beta)],
+                    *mp.limbs(c)]
+            kw.update(beta_s=mp.map_limbs(lambda l: l.reshape(1, 1), beta),
+                      c=c)
+        got = ozgemm.ozgemm_kernel_call(
+            *ops, bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
+            epilogue=epi)
+        want = plain(ozgemm.ozgemm_plain, a, b, bk=plan.bk,
+                     beta=plan.slice_beta, n_slices=plan.n_slices, **kw)
+        return got, want, plan
+
+    # kernel #1 at the shapes the main paths give it: dd as in the first
+    # slice; td/qd square, ragged, the SDP's X @ (A_j Z^-1) stack with X
+    # shared, and an rposv residual of the Schur system
     hil = hilbert_tier("dd", 32, device="cuda")
-    cases = [("512^3", rand_dd(512, 512), rand_dd(512, 512)),
-             ("509x263x131", rand_dd(509, 263), rand_dd(263, 131)),
-             ("Hilbert 32^3", hil, hil)]
-    for label, a, b in cases + [
+    dd_cases = [("512^3", rand_dd(512, 512), rand_dd(512, 512)),
+                ("509x263x131", rand_dd(509, 263), rand_dd(263, 131)),
+                ("Hilbert 32^3", hil, hil)]
+    for label, a, b in dd_cases + [
             ("1984x64x1984", rand_dd(1984, 64), rand_dd(64, 1984)),
             ("2048x2048x4", rand_dd(2048, 2048), rand_dd(2048, 4))]:
-        got = mlgemm.mlgemm_kernel_call(*mp.limbs(a), *mp.limbs(b))
-        same, err = compare("mlgemm", got, mlgemm.mlgemm_plain(a, b))
-        log(f"phase 2: mlgemm {label} kernel == plain: {same} "
-            f"(max abs diff {err:.3e})")
-        check(same, f"mlgemm {label} differs from its plain version")
-    alpha, beta = dd_scalar(1, 3), dd_scalar(-1, 7)
-    for label, a, b in cases:
-        (m, k), n = a.shape, b.shape[1]
-        c = rand_dd(m, n)
-        # the plan the engine makes for this shape gives the kernel its
-        # slab depth and solved slicing, as on the main path
-        plan = make_plan(m, k, n, backend="ozaki-pallas", platform="cuda")
-        for epi in ozgemm.EPILOGUES:
-            ops = [*mp.limbs(a), *mp.limbs(b)]
-            kw = {}
-            if epi != "none":
-                ops += [l.reshape(1, 1) for l in mp.limbs(alpha)]
-                kw["alpha"] = alpha
-            if epi == "full":
-                ops += [*[l.reshape(1, 1) for l in mp.limbs(beta)],
-                        *mp.limbs(c)]
-                kw.update(beta_s=beta, c=c)
-            got = ozgemm.ozgemm_kernel_call(
-                *ops, bk=plan.bk, beta=plan.slice_beta,
-                n_slices=plan.n_slices, epilogue=epi)
-            want = ozgemm.ozgemm_plain(a, b, bk=plan.bk,
-                                       beta=plan.slice_beta,
-                                       n_slices=plan.n_slices, **kw)
-            same, err = compare("ozgemm", got, want)
-            log(f"phase 2: ozgemm {label} epilogue={epi} (bk={plan.bk}, "
-                f"beta={plan.slice_beta}, n_slices={plan.n_slices}) "
-                f"kernel == plain: {same} (max abs diff {err:.3e})")
-            check(same, f"ozgemm {label} epilogue={epi} differs from its "
-                  f"plain version")
+        hold("mlgemm_dd", label,
+             mlgemm.mlgemm_kernel_call(*mp.limbs(a), *mp.limbs(b)),
+             plain(mlgemm.mlgemm_plain, a, b))
+    for p in ("td", "qd"):
+        for label, a, b in [
+                ("256^3", rand_tier((256, 256), p), rand_tier((256, 256), p)),
+                ("509x263x131", rand_tier((509, 263), p),
+                 rand_tier((263, 131), p)),
+                ("SDP stack 104 x 50x50x50 (A shared)",
+                 rand_tier((50, 50), p), rand_tier((104, 50, 50), p)),
+                ("rposv residual 104x104x1", rand_tier((104, 104), p),
+                 rand_tier((104, 1), p))]:
+            hold(f"mlgemm_{p}", label,
+                 mlgemm.mlgemm_kernel_call(*mp.limbs(a), *mp.limbs(b)),
+                 plain(mlgemm.mlgemm_plain, a, b))
+    # kernel #2: dd as in the first slice, td/qd square and ragged, each
+    # with the three epilogues, and one batched call per tier
+    for p in ("dd", "td", "qd"):
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        cases = dd_cases if p == "dd" else [
+            ("256^3", rand_tier((256, 256), p), rand_tier((256, 256), p)),
+            ("509x263x131", rand_tier((509, 263), p),
+             rand_tier((263, 131), p))]
+        for label, a, b in cases:
+            c = rand_tier((a.shape[0], b.shape[1]), p)
+            for epi in ozgemm.EPILOGUES:
+                got, want, plan = oz_call(a, b, p, epi, alpha, beta, c)
+                hold(f"ozgemm_{p}", f"{label} epilogue={epi} (bk={plan.bk},"
+                     f" beta={plan.slice_beta}, n_slices={plan.n_slices})",
+                     got, want)
+        a, b = rand_tier((6, 96, 80), p), rand_tier((80, 72), p)
+        got, want, _ = oz_call(a, b, p, "none")
+        hold(f"ozgemm_{p}", "batched 6 x 96x80x72 (B shared)", got, want)
+    # batched == looped, both kernels, every tier, through the engine
+    for p in ("dd", "td", "qd"):
+        a, b = rand_tier((5, 70, 40), p), rand_tier((5, 40, 66), p)
+        for backend, key in (("pallas", "mlgemm"), ("ozaki-pallas",
+                                                    "ozgemm")):
+            got = matmul(a, b, backend=backend)
+            same = all(
+                all(torch.equal(g, w) for g, w in zip(
+                    mp.limbs(got[i]),
+                    mp.limbs(matmul(a[i], b[i], backend=backend))))
+                for i in range(5))
+            log(f"phase 2: {key}_{p} batched 5 x 70x40x66 == looped: {same}")
+            check(same, f"{key}_{p} batched differs from looped")
+    # the elementwise kernels on the SDP loop's shapes: a Cholesky column
+    # (div by a broadcast pivot), a triangular-solve row (a broadcast row
+    # times a block), the pairwise product (4-D broadcast), the sums
+    m_sdp, n_sdp = 99, 50
+    for p in ("dd", "td", "qd"):
+        key = f"mpops_{p}"
+        col, piv = rand_tier((49, 1), p), rand_tier((1, 1), p)
+        row, blk = rand_tier((30, 1), p), rand_tier((30, 4950), p)
+        st_a = rand_tier((m_sdp, 1, n_sdp, n_sdp), p)
+        st_v = mp.map_limbs(lambda l: l.transpose(-1, -2),
+                            rand_tier((1, m_sdp, n_sdp, n_sdp), p))
+        pos = mp.abs_(rand_tier((1, 1), p))
+        for label, op, args in [
+                ("div (49,1)/(1,1)", "div", (col, piv)),
+                ("sqrt (1,1)", "sqrt", (pos,)),
+                ("mul (30,1)x(30,4950)", "mul", (row, blk)),
+                ("sub (30,4950)", "sub", (blk, rand_tier((30, 4950), p))),
+                ("fma (49,1)", "fma", (col, col, piv)),
+                ("mul_float (30,4950)", "mul_float",
+                 (blk, mp.limbs(row)[0])),
+                (f"mul ({m_sdp},1,{n_sdp},{n_sdp})x(1,{m_sdp},..)^T", "mul",
+                 (st_a, st_v))]:
+            hold(key, label, mp.limbs(mpops.mpops_call(op, *args)),
+                 mpops.mpops_plain(op, *args))
+        prod = mpops.mpops_call("mul", st_a, st_v).reshape(m_sdp, m_sdp, -1)
+        hold(key, f"sum ({m_sdp},{m_sdp},{n_sdp * n_sdp}) axis 2",
+             mp.limbs(mpops.sum_(prod, axis=2)),
+             mpops.sum_plain(prod, axis=2))
+        hold(key, "sum (30,4950) axis 0", mp.limbs(mpops.sum_(blk, axis=0)),
+             mpops.sum_plain(blk, axis=0))
+        del prod, st_a, st_v
     log(f"phase 2: {time.perf_counter() - t2:.1f} s")
 
-    # ---- 3. the main path: dd Rgemm at n = 4096 ------------------------
-    mlgemm.launches = 0
-    ozgemm.launches = 0
+    # ---- 3. the first main path: dd Rgemm at n = 4096 ------------------
+    reset_counts()
     n = 4096
     A, B, C = rand_dd(n, n), rand_dd(n, n), rand_dd(n, n)
-    alpha, beta = dd_scalar(1, 3), dd_scalar(-1, 7)
+    alpha, beta = scalar(1, 3), scalar(-1, 7)
     outs = {}
     for backend in ("ozaki-pallas", "pallas"):
         outs[backend], t = sync_time(lambda: rgemm(
@@ -203,8 +374,8 @@ def main() -> int:
     err = max_rel_err(outs["ozaki-pallas"], outs["pallas"])
     log(f"phase 3: max_rel_err(ozaki-pallas, pallas) = {err:.3e} "
         f"(2^{torch.log2(torch.tensor(err)).item():.1f}; bound "
-        f"16*k*2^-104 = {16 * n * ULP_DD:.3e})")
-    check(err <= 16 * n * ULP_DD, "the two Rgemm backends disagree")
+        f"16*k*2^-104 = {16 * n * ULP['dd']:.3e})")
+    check(err <= 16 * n * ULP["dd"], "the two Rgemm backends disagree")
     check(all(bool(torch.isfinite(l).all()) for o in outs.values()
               for l in mp.limbs(o)), "non-finite Rgemm output")
     del outs
@@ -226,7 +397,7 @@ def main() -> int:
     eye = torch.eye(n, dtype=torch.float64, device=dev)
     low = dd.DD(torch.tril(lu.hi, -1) + eye, torch.tril(lu.lo, -1))
     up = dd.DD(torch.triu(lu.hi), torch.triu(lu.lo))
-    resid = dd.sub(apply_pivots(A, piv), matmul(low, up, backend="pallas"))
+    resid = mp.sub(apply_pivots(A, piv), matmul(low, up, backend="pallas"))
     ratio = float(torch.max(torch.abs(dd.to_float(resid)))) / (
         n * float(rlange("m", A)) * U_DD)
     log(f"phase 5: ||PA - LU|| / (n ||A|| u_dd) = {ratio:.3f} (gate 30)")
@@ -275,22 +446,112 @@ def main() -> int:
     check(info.converged and info.factorizations.get("dd") == 1
           and info.final_backward_error <= 4 * n * U_DD,
           "the ill-conditioned rgesv did not converge through a dd rgetrf")
-    launches = {"mlgemm": mlgemm.launches, "ozgemm": ozgemm.launches}
-    log(f"phase 3-6: kernel launches on the main path: {launches}")
-    check(all(v > 0 for v in launches.values()),
-          "a kernel of the main path never launched")
+    path1 = read_counts()
+    log(f"phase 3-6: kernel launches on the first main path: {path1}")
+    check(path1["mlgemm"][2] > 0 and path1["ozgemm"][2] > 0
+          and path1["mpops"][2] > 0,
+          "a dd kernel of the first main path never launched")
+    del A, a64, b64, q, ill, bi, x
 
-    # ---- 7. times at the Rgemm shape -----------------------------------
-    n = 4096
-    A, B, C = rand_dd(n, n), rand_dd(n, n), rand_dd(n, n)
-    alpha, beta = dd_scalar(1, 3), dd_scalar(-1, 7)
-    plan = make_plan(n, n, n, backend="ozaki-pallas", platform="cuda")
-    oz_ops = [*mp.limbs(A), *mp.limbs(B),
-              *[l.reshape(1, 1) for l in mp.limbs(alpha)],
-              *[l.reshape(1, 1) for l in mp.limbs(beta)], *mp.limbs(C)]
-    oz_kw = dict(bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
-                 epilogue="full")
+    # ---- 8. the second main path: the upper rungs ----------------------
+    reset_counts()
+    t8 = time.perf_counter()
+    n = 2048
+    for p in ("td", "qd"):
+        A, B, C = (rand_tier((n, n), p) for _ in range(3))
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        outs = {}
+        for backend in ("ozaki-pallas", "pallas"):
+            outs[backend], t = sync_time(lambda: rgemm(
+                "n", "n", alpha, A, B, beta, C, backend=backend))
+            log(f"phase 8: rgemm {p} n={n} backend={backend}: {t:.4f} s")
+        err = max_rel_err(outs["ozaki-pallas"], outs["pallas"])
+        log(f"phase 8: {p} max_rel_err(ozaki-pallas, pallas) = {err:.3e} "
+            f"(bound 16*k*ulp_{p} = {16 * n * ULP[p]:.3e})")
+        check(err <= 16 * n * ULP[p], f"the two {p} Rgemm backends disagree")
+        check(all(bool(torch.isfinite(l).all()) for o in outs.values()
+                  for l in mp.limbs(o)), f"non-finite {p} Rgemm output")
+        del outs, A, B, C
+        for backend in ("pallas", "ozaki-pallas"):
+            err, t = sync_time(lambda: hilbert_relative_error(
+                p, 32, backend, device="cuda"))
+            log(f"phase 8: Hilbert n=32 {p} {backend}: rel err {err:.3e} "
+                f"(gate {GATES[p]:.3e}) in {t:.2f} s")
+            check(err <= GATES[p], f"{p} Hilbert gate on {backend}")
+    # the td rung's receipt: cond ~1e38 between dd's and td's reach
+    h = hilbert_tier("qd", 26, device="cuda")
+    bh = matmul(h, mp.from_float(torch.ones(26, 1, dtype=torch.float64,
+                                            device=dev), "qd"),
+                backend="ozaki-pallas")
+    (x, info), t = sync_time(lambda: rgesv(
+        h, bh, target_tier="qd", backend="ozaki-pallas", max_iters=40))
+    esc = [(e["from"], e["to"]) for e in info.escalations]
+    log(f"phase 8: rgesv Hilbert n=26 (qd) target qd ozaki-pallas: "
+        f"{t:.2f} s, converged={info.converged} in {info.iterations} "
+        f"iterations, escalations {esc}, factorizations "
+        f"{info.factorizations}, final backward error "
+        f"{info.final_backward_error:.3e}")
+    check(info.converged and esc == [("f64", "dd"), ("dd", "td")]
+          and "qd" not in info.factorizations
+          and info.factor_tiers[-1] == "td",
+          "the Hilbert n=26 ladder receipt")
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
+    # ---- 9. the SDP interior-point solver on the card ------------------
+    t9 = time.perf_counter()
+    sdp_runs = {}
+
+    def run_sdp(label, prob, **kw):
+        res, t = sync_time(lambda: solve_sdp(
+            prob, gemm_overrides={"backend": "pallas"}, **kw))
+        log(f"phase 9: {label}: {res.iterations} iterations, gap "
+            f"{res.relative_gap:.3e}, pfeas {res.p_feas_err:.3e}, dfeas "
+            f"{res.d_feas_err:.3e}, primal {res.primal_obj!r}, converged "
+            f"{res.converged}, schur_stats {res.schur_stats}, {t:.1f} s "
+            f"({t / res.iterations:.3f} s per iteration)")
+        sdp_runs[label] = {"iterations": res.iterations,
+                           "gap": res.relative_gap, "seconds": t}
+        return res
+
+    theta = theta_problem(50, edge_prob=0.085, seed=0)
+    log(f"phase 9: theta_problem(50, 0.085, seed=0): n={theta.n}, "
+        f"m={theta.m} (SDPLIB theta1: n=50, m=104)")
+    r128 = run_sdp("theta1 shape binary128", theta, precision="binary128",
+                   max_iters=80)
+    # the Table V receipts of tests/test_sdp.py, pfeas at the reference's
+    # own value on this problem
+    log(f"phase 9: gates gap < 1e-20, pfeas <= {THETA1_REF_PFEAS:.4e} (the "
+        f"reference's), dfeas < 1e-28")
+    check(r128.relative_gap < 1e-20 and r128.p_feas_err <= THETA1_REF_PFEAS
+          and r128.d_feas_err < 1e-28, "theta1 binary128 Table V receipts")
+    rqd = run_sdp("theta1 shape binary128+", theta, precision="binary128+",
+                  max_iters=90)
+    rel_obj = abs(rqd.primal_obj - r128.primal_obj) / abs(r128.primal_obj)
+    log(f"phase 9: binary128+ gap / binary128 gap = "
+        f"{rqd.relative_gap / r128.relative_gap:.3e} (gate 1e-2); primal "
+        f"objectives agree to {rel_obj:.3e} relative (gate 1e-18)")
+    check(rqd.relative_gap <= 1e-2 * r128.relative_gap and rel_obj <= 1e-18,
+          "theta1 binary128+ against binary128")
+    deg = run_sdp("random_sdp(6, 4, seed=3, degeneracy=1e-5) binary128+",
+                  random_sdp(6, 4, seed=3, degeneracy=1e-5),
+                  precision="binary128+", max_iters=90, tol_gap=1e-26)
+    st = deg.schur_stats
+    check(deg.relative_gap <= 1e-20
+          and st["factorizations"].get("qd", 0) < st["solves"] // 2,
+          "the degenerate binary128+ receipt")
+    prob = random_sdp(6, 4, seed=3)
+    rtd = run_sdp("random_sdp(6, 4, seed=3) binary192", prob,
+                  precision="binary192", max_iters=50, tol_gap=1e-18)
+    check(rtd.converged and rtd.relative_gap <= 1e-18
+          and abs(rtd.primal_obj - prob.opt) < 1e-8 * max(1, abs(prob.opt)),
+          "the binary192 receipt")
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    path2 = read_counts()
+    log(f"phase 8-9: kernel launches on the second main path: {path2}")
+    check(all(path2[name][k] > 0 for name in counters for k in (3, 4)),
+          "a td/qd kernel of the second main path never launched")
+
+    # ---- 7. times beside bounds ----------------------------------------
     def event_ms(fn, reps):
         fn()  # warm up
         start = torch.cuda.Event(enable_timing=True)
@@ -302,68 +563,146 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
-        *mp.limbs(A), *mp.limbs(B)), 3)
-    oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(*oz_ops, **oz_kw), 3)
-    # the plain versions at the same shape, timed once, and held against
-    # the kernels' outputs bit for bit
-    want, t = sync_time(lambda: mlgemm.mlgemm_plain(A, B))
-    ml_plain_ms = t * 1e3
-    same, err = compare("mlgemm", mlgemm.mlgemm_kernel_call(
-        *mp.limbs(A), *mp.limbs(B)), want)
-    log(f"phase 7: mlgemm {n}^3 kernel == plain: {same} "
-        f"(max abs diff {err:.3e})")
-    check(same, f"mlgemm {n}^3 differs from its plain version")
-    want, t = sync_time(lambda: ozgemm.ozgemm_plain(
-        A, B, bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
-        alpha=alpha, beta_s=beta, c=C))
-    oz_plain_ms = t * 1e3
-    same, err = compare("ozgemm", ozgemm.ozgemm_kernel_call(
-        *oz_ops, **oz_kw), want)
-    log(f"phase 7: ozgemm {n}^3 epilogue=full kernel == plain: {same} "
-        f"(max abs diff {err:.3e})")
-    check(same, f"ozgemm {n}^3 differs from its plain version")
-    del want
-    f64_ms = event_ms(lambda: torch.matmul(A.hi, B.hi), 5)
-
-    mnk = n ** 3
-    ml_ops = mnk * MLGEMM_OPS_PER_FMA
-    pairs = sum(len(range(max(0, d - plan.n_slices + 1),
-                          min(d + 1, plan.n_slices)))
-                for d in range(plan.n_slices))
-    oz_ops_n = (2 * mnk * pairs
-                + 2 * n * n * plan.n_slices * OZGEMM_OPS_PER_SLICE
-                + n * n * (n // plan.bk) * plan.n_slices * ADD_FLOAT_OPS
-                + n * n * (2 * DD_MUL_OPS + DD_ADD_OPS))
-    ml_bytes = 8 * 2 * 3 * n * n          # A, B in; C out (two limbs)
-    oz_bytes = 8 * 2 * 4 * n * n + 8 * 4  # A, B, C in; out; the scalars
-
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / F64_PEAK, nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, \
             "operations" if t_ops >= t_bytes else "bytes"
 
+    def pairs(s):
+        return sum(len(range(max(0, d - s + 1), min(d + 1, s)))
+                   for d in range(s))
+
     kernels = []
-    for name, route_src, replaces, ms, plain_ms, (b_ms, b_by) in (
-            ("mlgemm_dd", "src/repro_torch/csrc/mlgemm.cu",
-             "src/repro/kernels/mlgemm.py:90", ml_ms, ml_plain_ms,
-             bound(ml_ops, ml_bytes)),
-            ("ozgemm_dd", "src/repro_torch/csrc/ozgemm.cu",
-             "src/repro/kernels/ozgemm.py:170", oz_ms, oz_plain_ms,
-             bound(oz_ops_n, oz_bytes))):
+
+    def record(name, source, replaces, ms, plain_ms, b, shape, f64_ms,
+               note=""):
         key = name.split("_")[0]
+        k = NLIMBS[name.split("_")[1]]
         kernels.append({
-            "name": name, "route": "cuda", "source": route_src,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": [n, n, n],
-            "context_f64_matmul_ms": f64_ms,
-        })
-        log(f"phase 7: {name} at {n}^3: {ms:.2f} ms (bound {b_ms:.2f} ms "
-            f"by {b_by}, {b_ms / ms:.1%} of it), plain version "
-            f"{plain_ms:.1f} ms; f64 torch.matmul (context only) "
-            f"{f64_ms:.2f} ms")
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": path1[key][k] + path2[key][k],
+            "max_abs_err": max_err.get(name, 0.0), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "shape": shape,
+            "context_f64_matmul_ms": f64_ms})
+        log(f"phase 7: {name} at {shape}: {ms:.2f} ms (bound {b[0]:.2f} ms "
+            f"by {b[1]}, {b[0] / ms:.1%} of it), plain version "
+            f"{plain_ms:.1f} ms{note}; f64 torch.matmul (context only) "
+            f"{f64_ms:.3f} ms")
+
+    ml_src, ml_rep = ("src/repro_torch/csrc/mlgemm.cu",
+                      "src/repro/kernels/mlgemm.py:90")
+    oz_src, oz_rep = ("src/repro_torch/csrc/ozgemm.cu",
+                      "src/repro/kernels/ozgemm.py:170")
+    # the dd kernels at the first path's Rgemm shape, plain versions there
+    n = 4096
+    A, B, C = rand_dd(n, n), rand_dd(n, n), rand_dd(n, n)
+    alpha, beta = scalar(1, 3), scalar(-1, 7)
+    plan = make_plan(n, n, n, backend="ozaki-pallas", platform="cuda")
+    oz_ops = [*mp.limbs(A), *mp.limbs(B),
+              *[l.reshape(1, 1) for l in mp.limbs(alpha)],
+              *[l.reshape(1, 1) for l in mp.limbs(beta)], *mp.limbs(C)]
+    oz_kw = dict(bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
+                 epilogue="full")
+    ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
+        *mp.limbs(A), *mp.limbs(B)), 3)
+    oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(*oz_ops, **oz_kw), 3)
+    want, t = sync_time(lambda: plain(mlgemm.mlgemm_plain, A, B))
+    ml_plain_ms = t * 1e3
+    same, err = compare("mlgemm_dd", mlgemm.mlgemm_kernel_call(
+        *mp.limbs(A), *mp.limbs(B)), want)
+    log(f"phase 7: mlgemm_dd {n}^3 kernel == plain: {same} "
+        f"(max abs diff {err:.3e})")
+    check(same, f"mlgemm_dd {n}^3 differs from its plain version")
+    want, t = sync_time(lambda: plain(
+        ozgemm.ozgemm_plain, A, B, bk=plan.bk, beta=plan.slice_beta,
+        n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=C))
+    oz_plain_ms = t * 1e3
+    same, err = compare("ozgemm_dd", ozgemm.ozgemm_kernel_call(
+        *oz_ops, **oz_kw), want)
+    log(f"phase 7: ozgemm_dd {n}^3 epilogue=full kernel == plain: {same} "
+        f"(max abs diff {err:.3e})")
+    check(same, f"ozgemm_dd {n}^3 differs from its plain version")
+    del want
+    f64_ms = event_ms(lambda: torch.matmul(A.hi, B.hi), 5)
+    mnk = n ** 3
+    s = plan.n_slices
+    record("mlgemm_dd", ml_src, ml_rep, ml_ms, ml_plain_ms,
+           bound(mnk * MLGEMM_OPS_PER_FMA, 8 * 2 * 3 * n * n), [n, n, n],
+           f64_ms)
+    record("ozgemm_dd", oz_src, oz_rep, oz_ms, oz_plain_ms,
+           bound(2 * mnk * pairs(s)
+                 + 2 * n * n * s * OZGEMM_OPS_PER_SLICE
+                 + n * n * (n // plan.bk) * s * ADD_FLOAT_OPS
+                 + n * n * (2 * DD_MUL_OPS + DD_ADD_OPS),
+                 8 * 2 * 4 * n * n + 8 * 4), [n, n, n], f64_ms,
+           " (epilogue full)")
+    del A, B, C, oz_ops
+
+    # the td/qd kernels at 2048^3, their plain versions at 256^3
+    n, n_plain = 2048, 256
+    for p in ("td", "qd"):
+        k = NLIMBS[p]
+        A, B, C = (rand_tier((n, n), p) for _ in range(3))
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        plan = make_plan(n, n, n, precision=p, backend="ozaki-pallas",
+                         platform="cuda")
+        oz_ops = [*mp.limbs(A), *mp.limbs(B),
+                  *[l.reshape(1, 1) for l in mp.limbs(alpha)],
+                  *[l.reshape(1, 1) for l in mp.limbs(beta)], *mp.limbs(C)]
+        oz_kw = dict(bk=plan.bk, beta=plan.slice_beta,
+                     n_slices=plan.n_slices, epilogue="full")
+        ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
+            *mp.limbs(A), *mp.limbs(B)), 2)
+        oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(
+            *oz_ops, **oz_kw), 2)
+        f64_ms = event_ms(lambda: torch.matmul(mp.limbs(A)[0],
+                                               mp.limbs(B)[0]), 5)
+        a_s, b_s, c_s = (rand_tier((n_plain, n_plain), p) for _ in range(3))
+        _, t = sync_time(lambda: plain(mlgemm.mlgemm_plain, a_s, b_s))
+        ml_plain_ms = t * 1e3
+        _, t = sync_time(lambda: plain(
+            ozgemm.ozgemm_plain, a_s, b_s, bk=plan.bk, beta=plan.slice_beta,
+            n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=c_s))
+        oz_plain_ms = t * 1e3
+        mnk = n ** 3
+        s = plan.n_slices
+        note = f" at {n_plain}^3"
+        record(f"mlgemm_{p}", ml_src, ml_rep, ml_ms, ml_plain_ms,
+               bound(mnk * fma_ops(k), 8 * k * 3 * n * n), [n, n, n],
+               f64_ms, note)
+        record(f"ozgemm_{p}", oz_src, oz_rep, oz_ms, oz_plain_ms,
+               bound(2 * mnk * pairs(s)
+                     + 2 * n * n * s * (3 + add_ops(k))
+                     + n * n * (n // plan.bk) * s * renorm_ops(k + 1, k)
+                     + n * n * (2 * mul_ops(k) + add_ops(k)),
+                     8 * k * 4 * n * n + 8 * 2 * k), [n, n, n], f64_ms,
+               note + ", epilogue full")
+        del A, B, C, oz_ops
+
+    # the elementwise kernels on the SDP's pairwise product
+    shape = [m_sdp, m_sdp, n_sdp, n_sdp]
+    for p in ("dd", "td", "qd"):
+        k = NLIMBS[p]
+        st_a = rand_tier((m_sdp, 1, n_sdp, n_sdp), p)
+        st_v = mp.map_limbs(lambda l: l.transpose(-1, -2),
+                            rand_tier((1, m_sdp, n_sdp, n_sdp), p))
+        ms = event_ms(lambda: mpops.mpops_call("mul", st_a, st_v), 3)
+        _, t = sync_time(lambda: mpops.mpops_plain("mul", st_a, st_v))
+        elems = m_sdp * m_sdp * n_sdp * n_sdp
+        record(f"mpops_{p}", "src/repro_torch/csrc/mpops.cu",
+               "src/repro/core/sdp.py:141", ms, t * 1e3,
+               bound(elems * tier_mul_ops(k),
+                     8 * k * (2 * m_sdp * n_sdp * n_sdp + elems)), shape,
+               event_ms(lambda: torch.matmul(
+                   mp.limbs(st_a)[0].reshape(m_sdp, -1),
+                   mp.limbs(st_v)[0].reshape(m_sdp, -1).T), 5),
+               " (mul of the pairwise_trace product; context: the f64 "
+               "(m, n*n) x (n*n, m) matmul)")
+        del st_a, st_v
+
+    log(f"phase 9 summary: {json.dumps(sdp_runs)}")
     log(smi)  # exactly as nvidia-smi prints name and power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,17 @@ The port of ``repro.core.mp``.  ``dd`` (2 limbs, ~106 bits), ``td``
 The tier modules are imported lazily (they import the generic recipes from
 here), and mixing tiers in one op raises ``TypeError``: re-tiering is an
 explicit ``promote``.
+
+On CUDA tensors the elementwise ops (``add``, ``sub``, ``mul``, ``fma``,
+``div``, ``sqrt``, ``mul_float``) and ``sum_`` launch one fused kernel
+each (``kernels/mpops.py``, ``csrc/mpops.cu``), bit for bit the tier
+modules' arithmetic; on CPU tensors, and inside
+``plain_ops()``, they run the tier modules' PyTorch code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 from typing import Sequence
 
@@ -31,7 +38,7 @@ __all__ = [
     "where", "sum_", "dot", "broadcast_to", "eps", "max_abs", "is_zero",
     "renorm_list", "add_limbs", "neg_limbs", "mul_limbs", "mul_float_limbs",
     "mul_pow2_limbs", "fma_limbs", "div_limbs", "sqrt_limbs", "sum_limbs",
-    "to_dd_limbs", "eps_for",
+    "to_dd_limbs", "eps_for", "plain_ops",
 ]
 
 # precision name -> limb count, in ladder order (cheapest rung first).
@@ -42,13 +49,20 @@ PRECISIONS = {"dd": 2, "td": 3, "qd": 4}
 _BY_COUNT = {n: name for name, n in PRECISIONS.items()}
 
 
+_MODS: dict = {}
+
+
 def _tier_mod(precision: str):
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; "
-                         f"one of {sorted(PRECISIONS)}")
-    # lazy: tier modules import the generic kernels from here, so this
-    # module must never import them at top level (importlib caches them)
-    return importlib.import_module(f".{precision}", __package__)
+    mod = _MODS.get(precision)
+    if mod is None:
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}; "
+                             f"one of {sorted(PRECISIONS)}")
+        # lazy: tier modules import the generic kernels from here, so this
+        # module must never import them at top level
+        mod = _MODS[precision] = importlib.import_module(
+            f".{precision}", __package__)
+    return mod
 
 
 def _tier_type(precision: str):
@@ -74,6 +88,31 @@ def precision_of(x) -> str:
 
 def _mod(x):
     return _tier_mod(precision_of(x))
+
+
+_PLAIN = [0]  # depth of nested plain_ops() blocks
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Run the tier modules' PyTorch code even on CUDA tensors (the plain
+    versions that the kernels are held against)."""
+    _PLAIN[0] += 1
+    try:
+        yield
+    finally:
+        _PLAIN[0] -= 1
+
+
+def _kernel(x) -> bool:
+    """True when ``x`` lives on the card and kernels are not switched off."""
+    return not _PLAIN[0] and x.limbs()[0].is_cuda
+
+
+def _mpops(op, *args):
+    from ..kernels.mpops import mpops_call
+
+    return mpops_call(op, *args)
 
 
 def _mod2(a, *others):
@@ -140,11 +179,17 @@ def promote(x, precision: str):
 
 
 def add(a, b):
-    return _mod2(a, b).add(a, b)
+    mod = _mod2(a, b)
+    if _kernel(a):
+        return _mpops("add", a, b)
+    return mod.add(a, b)
 
 
 def sub(a, b):
-    return _mod2(a, b).sub(a, b)
+    mod = _mod2(a, b)
+    if _kernel(a):
+        return _mpops("sub", a, b)
+    return mod.sub(a, b)
 
 
 def neg(a):
@@ -171,24 +216,39 @@ def is_zero(x):
 
 
 def mul(a, b):
-    return _mod2(a, b).mul(a, b)
+    mod = _mod2(a, b)
+    if _kernel(a):
+        return _mpops("mul", a, b)
+    return mod.mul(a, b)
 
 
 def fma(acc, a, b):
     """acc + a*b — the multiply-add "PE" operation at acc's tier."""
-    return _mod2(acc, a, b).fma(acc, a, b)
+    mod = _mod2(acc, a, b)
+    if _kernel(acc):
+        return _mpops("fma", acc, a, b)
+    return mod.fma(acc, a, b)
 
 
 def mul_float(a, s):
-    return _mod(a).mul_float(a, s)
+    mod = _mod(a)
+    if _kernel(a):
+        return _mpops("mul_float", a, s)
+    return mod.mul_float(a, s)
 
 
 def div(a, b):
-    return _mod2(a, b).div(a, b)
+    mod = _mod2(a, b)
+    if _kernel(a):
+        return _mpops("div", a, b)
+    return mod.div(a, b)
 
 
 def sqrt(a):
-    return _mod(a).sqrt(a)
+    mod = _mod(a)
+    if _kernel(a):
+        return _mpops("sqrt", a)
+    return mod.sqrt(a)
 
 
 def where(c, a, b):
@@ -196,11 +256,19 @@ def where(c, a, b):
 
 
 def sum_(a, axis=None, keepdims=False):
-    return _mod(a).sum_(a, axis=axis, keepdims=keepdims)
+    mod = _mod(a)
+    if _kernel(a):
+        from ..kernels.mpops import sum_ as _sum
+
+        return _sum(a, axis=axis, keepdims=keepdims)
+    return mod.sum_(a, axis=axis, keepdims=keepdims)
 
 
 def dot(a, b):
-    return _mod2(a, b).dot(a, b)
+    mod = _mod2(a, b)
+    if _kernel(a):
+        return sum_(mul(a, b), axis=0)
+    return mod.dot(a, b)
 
 
 def broadcast_to(x, shape):

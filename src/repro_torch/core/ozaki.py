@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import dd, mp
@@ -109,7 +110,7 @@ def _pow2_near(mu):
 
 
 def _extract_slices(x, beta: int, n_slices: int, axis: int):
-    """Error-free slices along rows (axis=1, for A) or columns (axis=0).
+    """Error-free slices along rows (axis=-1, for A) or columns (axis=-2).
 
     Anchor sigma_0 = 2^(exponent(mu) + p - beta) from the row/column max mu
     of the leading limb, then sigma_i = sigma_0 * 2^(-i*beta): slice i of
@@ -174,23 +175,25 @@ def diagonal_sums(sa, sb, n_slices: int, full: bool, acc_dtype):
 def ozaki_gemm(a, b, *, slice_dtype=None, acc_dtype=None,
                n_slices: int | None = None, beta: int | None = None,
                target_bits: int = 107, full: bool = False):
-    """C = A @ B via error-free slicing onto native GEMMs (whole K)."""
+    """C = A @ B via error-free slicing onto native GEMMs (whole K; leading
+    batch dims broadcast through ``torch.matmul``)."""
     acc_dtype = as_dtype(acc_dtype or torch.float64)
     slice_dtype = as_dtype(slice_dtype or torch.float64)
     lead = mp.limbs(a)[0]
-    k = lead.shape[1]
+    k = lead.shape[-1]
     beta, n_slices = slice_params(k, acc_dtype, slice_dtype,
                                   target_bits=target_bits,
                                   n_slices=n_slices, beta=beta)
     limb_dtype = lead.dtype
-    sa = _extract_slices(a, beta, n_slices, axis=1)
-    sb = _extract_slices(b, beta, n_slices, axis=0)
+    sa = _extract_slices(a, beta, n_slices, axis=-1)
+    sb = _extract_slices(b, beta, n_slices, axis=-2)
     narrow = slice_dtype != limb_dtype
     if narrow:
-        sa, sc_a = _normalize_slices(sa, beta, 1, slice_dtype)
-        sb, sc_b = _normalize_slices(sb, beta, 0, slice_dtype)
-    m, n = lead.shape[0], mp.limbs(b)[0].shape[1]
-    acc = mp.zeros((m, n), mp.precision_of(a), dtype=limb_dtype,
+        sa, sc_a = _normalize_slices(sa, beta, -1, slice_dtype)
+        sb, sc_b = _normalize_slices(sb, beta, -2, slice_dtype)
+    m, n = lead.shape[-2], mp.limbs(b)[0].shape[-1]
+    batch = tuple(np.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    acc = mp.zeros(batch + (m, n), mp.precision_of(a), dtype=limb_dtype,
                    device=lead.device)
     for d, dsum in diagonal_sums(sa, sb, n_slices, full, acc_dtype):
         if narrow:

@@ -125,4 +125,57 @@ __device__ __forceinline__ void add_float_to(double &ahi, double &alo, double b)
   quick_two_sum(s, e, ahi, alo);
 }
 
+// dd.mul_float(a, b).
+__device__ __forceinline__ void mul_float(double ahi, double alo, double b,
+                                          double &rhi, double &rlo) {
+  double p, e;
+  two_prod(split(ahi), split(b), p, e);
+  e = add(e, mul(alo, b));
+  quick_two_sum(p, e, rhi, rlo);
+}
+
+// dd.sub(a, b) == dd.add(a, dd.neg(b)).  In place on a.
+__device__ __forceinline__ void sub_from(double &ahi, double &alo, double bhi, double blo) {
+  add_to(ahi, alo, -bhi, -blo);
+}
+
+// dd.div(a, b): three native quotients, the QD library's long division.
+__device__ __forceinline__ void div(double ahi, double alo, double bhi, double blo,
+                                    double &rhi, double &rlo) {
+  double q1 = __ddiv_rn(ahi, bhi);
+  double mh, ml, rh = ahi, rl = alo;
+  mul_float(bhi, blo, q1, mh, ml);
+  sub_from(rh, rl, mh, ml);
+  double q2 = __ddiv_rn(rh, bhi);
+  mul_float(bhi, blo, q2, mh, ml);
+  sub_from(rh, rl, mh, ml);
+  double q3 = __ddiv_rn(rh, bhi);
+  double q, e;
+  quick_two_sum(q1, q2, q, e);
+  add_float_to(q, e, q3);
+  rhi = q;
+  rlo = e;
+}
+
+// dd.sqrt: Karp's trick, x ~ 1/sqrt(hi); s = a*x; s + x*(a - s^2)/2.  The
+// products with the zero low limb of (ax, 0) stay, as in the plain version.
+__device__ __forceinline__ void sqrt(double ahi, double alo, double &rhi, double &rlo) {
+  double x = __ddiv_rn(1.0, __dsqrt_rn(ahi));
+  double ax = mul(ahi, x);
+  double p, e;
+  two_prod(split(ax), split(ax), p, e);
+  e = add(e, add(mul(ax, 0.0), mul(0.0, ax)));
+  double mh, ml;
+  quick_two_sum(p, e, mh, ml);
+  double eh = ahi, el = alo;
+  sub_from(eh, el, mh, ml);
+  add_float_to(eh, el, 0.0);
+  double corr = mul(eh, mul(x, 0.5));
+  double oh = ax, ol = 0.0;
+  add_float_to(oh, ol, corr);
+  bool zero = ahi == 0.0;
+  rhi = zero ? 0.0 : oh;
+  rlo = zero ? 0.0 : ol;
+}
+
 }  // namespace dd

@@ -1,136 +1,200 @@
-// Kernel #1: the dd systolic-tile GEMM, C = A @ B at two limb planes.
+// Kernel #1: the systolic-tile multi-limb GEMM, C = A @ B at KLIMBS limb
+// planes (2 = dd, 3 = td, 4 = qd), with an optional batch grid axis.
 //
 // Replaces the Pallas kernel repro/kernels/mlgemm.py (_mlgemm_kernel /
-// mlgemm_kernel_call) at 2 planes, also reached through
-// repro/kernels/ddgemm.py (ddgemm_kernel_call): the engine's `pallas`
-// backend, the paper's PE array.
+// mlgemm_kernel_call), also reached through repro/kernels/ddgemm.py
+// (ddgemm_kernel_call) and repro/kernels/qdgemm.py (qdgemm_kernel_call):
+// the engine's `pallas` backend, the paper's PE array.  The build compiles
+// this file once per limb count (-DKLIMBS=2|3|4, see kernels/_build.py).
 //
 // What it computes: per output element, the sequential left fold over
-// k = 0..K-1 of acc = dd.fma(acc, a[i,k], b[k,j]) from acc = 0, where
-// dd.fma = dd.add(acc, dd.mul(a, b)) with the rescue/mask-split two_prod.
-// The fold order is the reference's, so the bits depend on no block size,
-// and the plain version (repro_torch/kernels/mlgemm.py, mlgemm_plain)
-// agrees with this kernel bit for bit.
+// k = 0..K-1 of acc = mp.fma(acc, a[i,k], b[k,j]) from acc = 0.  At dd that
+// is dd.fma = dd.add(acc, dd.mul(a, b)) (dd_device.cuh); at td/qd it is
+// mp.fma_limbs = renorm_list(acc + mul_limbs(a, b), sweeps=3)
+// (ml_device.cuh).  The fold order is the reference's, so the bits depend
+// on no block size, and the plain version (repro_torch/kernels/mlgemm.py,
+// mlgemm_plain) agrees with this kernel bit for bit.
 //
-// Bound on the H100: compute.  One dd FMA issues 51 f64 add/sub/mul
-// operations in the inner loop below (two_prod 4 mul + 3 two_sum + 2 add;
-// the dd.mul tail 2 mul + 2 add + quick_two_sum; Li's add 20), none of them
-// fusable, plus a few integer and compare ops; each A and B element is
-// split once per K step, amortized over 4 outputs.  m*n*k*51 operations
-// over the card's 34 TFLOP/s f64 (non-tensor-core) peak; every operand is
-// read once per 64-wide tile, so bytes are far below that line.
+// Batching: blockIdx.z walks the flattened batch; each operand carries a
+// batch stride in elements (0 for an operand shared by every batch entry),
+// so one launch serves one batched engine call.
 //
-// Design: one CTA per 64x64 output tile (the paper's PE array), K staged
-// through shared memory 16 deep (the paper's M_Tile), both limbs of the
-// 4x4 accumulator micro-tile of each of the 256 threads in registers.
-// Each thread splits its 4 A and 4 B operands once per K step and reuses
-// the splits across its 16 outputs, which is bit-identical because the
-// split depends on the operand alone.  Ragged edges are masked, not padded
-// (a zero FMA leaves a normalized accumulator unchanged, so masking and
-// the reference's zero padding give the same bits).  No FMA contraction
-// anywhere (see dd_device.cuh).  wgmma/TMA play no part: the work is
-// scalar f64 EFT chains, not a product the tensor cores can take.
+// Bound on the H100: compute.  f64 add/sub/mul operations per FMA in the
+// inner loops below: 51 at dd (two_prod 4 mul + 3 two_sum + 2 add; the
+// dd.mul tail 2 mul + 2 add + quick_two_sum; Li's add 20), none fusable.
+// At td/qd the exact-product expansion (18 / 34 terms) is renormalized
+// over three sweeps and added to the accumulator by a second renorm
+// (chip_smoke.py counts the operations from the same recipe).  m*n*k
+// times that count over the card's 34 TFLOP/s f64 peak; every operand is
+// read once per tile, so bytes are far below that line.
+//
+// Design: one CTA of 256 threads per output tile, K staged through shared
+// memory 16 deep (the paper's M_Tile), every limb of the thread's
+// accumulator micro-tile in registers.  The micro-tile shrinks with the
+// limb count, because one td/qd FMA holds its whole term expansion in
+// registers: 4x4 (64x64 tile) at dd, 2x2 (32x32 tile) at td and qd.  Each
+// thread splits its A and B operands once per K step and reuses the splits
+// across its outputs, which is bit-identical because a split depends on
+// the operand alone.  Ragged edges are masked, not padded (a zero FMA
+// leaves a normalized accumulator unchanged, so masking and the
+// reference's zero padding give the same bits).  No FMA contraction
+// anywhere.  wgmma/TMA play no part: the work is scalar f64 EFT chains,
+// not a product the tensor cores can take.
 #include <cuda_runtime.h>
 
 #include "dd_device.cuh"
+#include "ml_device.cuh"
+
+#ifndef KLIMBS
+#error "build with -DKLIMBS=2, 3 or 4"
+#endif
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;
-constexpr int TM = 4, TN = 4;
-constexpr int TX = BN / TN, TY = BM / TM;  // 16 x 16 threads
+constexpr int K = KLIMBS;
+constexpr int BK = 16;
+constexpr int TM = K == 2 ? 4 : 2, TN = TM;
+constexpr int TX = 16, TY = 16;  // 256 threads
+constexpr int BM = TM * TY, BN = TN * TX;
 constexpr int THREADS = TX * TY;
 
+struct In {
+  const double *p[K];
+};
+struct Out {
+  double *p[K];
+};
+
+// Per-element multiply-accumulate of one thread's micro-tile at K step kk.
+__device__ __forceinline__ void fma_step(double (&acc)[TM][TN][K],
+                                         const double (&av)[TM][K],
+                                         const double (&bv)[TN][K]) {
+  if constexpr (K == 2) {
+    dd::Split asp[TM], bsp[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) asp[i] = dd::split(av[i][0]);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bsp[j] = dd::split(bv[j][0]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        double ph, pl;
+        dd::mul_split(av[i][0], av[i][1], asp[i], bv[j][0], bv[j][1], bsp[j], ph, pl);
+        dd::add_to(acc[i][j][0], acc[i][j][1], ph, pl);
+      }
+  } else {
+    ml::Split asp[TM][K - 1], bsp[TN][K - 1];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int l = 0; l < K - 1; ++l) asp[i][l] = ml::split(av[i][l]);
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int l = 0; l < K - 1; ++l) bsp[j][l] = ml::split(bv[j][l]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        double p[K], s[K];
+        ml::mul_limbs_split<K>(av[i], asp[i], bv[j], bsp[j], p);
+        ml::add_limbs<K>(acc[i][j], p, s);
+#pragma unroll
+        for (int l = 0; l < K; ++l) acc[i][j][l] = s[l];
+      }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
-mlgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_lo,
-                 const double *__restrict__ b_hi, const double *__restrict__ b_lo,
-                 double *__restrict__ c_hi, double *__restrict__ c_lo,
-                 int m, int n, int k) {
+mlgemm_kernel(In a, In b, Out c, int m, int n, int k, long long stride_a,
+              long long stride_b) {
   // K-major tiles; the +1 pad spreads the transposed stores over the banks
-  __shared__ double as_hi[BK][BM + 1], as_lo[BK][BM + 1];
-  __shared__ double bs_hi[BK][BN], bs_lo[BK][BN];
+  __shared__ double as[K][BK][BM + 1];
+  __shared__ double bs[K][BK][BN];
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const long long z = blockIdx.z;
 
-  double acc_hi[TM][TN], acc_lo[TM][TN];
+  double acc[TM][TN][K];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc_hi[i][j] = acc_lo[i][j] = 0.0;
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int l = 0; l < K; ++l) acc[i][j][l] = 0.0;
 
   for (int k0 = 0; k0 < k; k0 += BK) {
     for (int idx = threadIdx.x; idx < BM * BK; idx += THREADS) {
       int r = idx / BK, kk = idx % BK;
       int gr = row0 + r, gk = k0 + kk;
       bool ok = gr < m && gk < k;
-      size_t off = (size_t)gr * k + gk;
-      as_hi[kk][r] = ok ? a_hi[off] : 0.0;
-      as_lo[kk][r] = ok ? a_lo[off] : 0.0;
+      long long off = z * stride_a + (long long)gr * k + gk;
+#pragma unroll
+      for (int l = 0; l < K; ++l) as[l][kk][r] = ok ? a.p[l][off] : 0.0;
     }
     for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-      int kk = idx / BN, c = idx % BN;
-      int gk = k0 + kk, gc = col0 + c;
+      int kk = idx / BN, cc = idx % BN;
+      int gk = k0 + kk, gc = col0 + cc;
       bool ok = gk < k && gc < n;
-      size_t off = (size_t)gk * n + gc;
-      bs_hi[kk][c] = ok ? b_hi[off] : 0.0;
-      bs_lo[kk][c] = ok ? b_lo[off] : 0.0;
+      long long off = z * stride_b + (long long)gk * n + gc;
+#pragma unroll
+      for (int l = 0; l < K; ++l) bs[l][kk][cc] = ok ? b.p[l][off] : 0.0;
     }
     __syncthreads();
 
     const int kmax = min(BK, k - k0);
     for (int kk = 0; kk < kmax; ++kk) {
-      double ah[TM], al[TM], bh[TN], bl[TN];
-      dd::Split asp[TM], bsp[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        ah[i] = as_hi[kk][ty + TY * i];
-        al[i] = as_lo[kk][ty + TY * i];
-        asp[i] = dd::split(ah[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bh[j] = bs_hi[kk][tx + TX * j];
-        bl[j] = bs_lo[kk][tx + TX * j];
-        bsp[j] = dd::split(bh[j]);
-      }
+      double av[TM][K], bv[TN][K];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          double ph, pl;
-          dd::mul_split(ah[i], al[i], asp[i], bh[j], bl[j], bsp[j], ph, pl);
-          dd::add_to(acc_hi[i][j], acc_lo[i][j], ph, pl);
-        }
+        for (int l = 0; l < K; ++l) av[i][l] = as[l][kk][ty + TY * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int l = 0; l < K; ++l) bv[j][l] = bs[l][kk][tx + TX * j];
+      fma_step(acc, av, bv);
     }
     __syncthreads();
   }
 
+  const long long zoff = z * (long long)m * n;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     int r = row0 + ty + TY * i;
     if (r >= m) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      int c = col0 + tx + TX * j;
-      if (c >= n) continue;
-      c_hi[(size_t)r * n + c] = acc_hi[i][j];
-      c_lo[(size_t)r * n + c] = acc_lo[i][j];
+      int cc = col0 + tx + TX * j;
+      if (cc >= n) continue;
+#pragma unroll
+      for (int l = 0; l < K; ++l) c.p[l][zoff + (long long)r * n + cc] = acc[i][j][l];
     }
   }
 }
 
 }  // namespace
 
-// C = A @ B, dd limbs: A (m, k), B (k, n), C (m, n), all row-major and
-// contiguous f64 on the device.  Launches on `stream`; returns the launch's
-// cudaGetLastError() (0 on success).
-extern "C" int mlgemm_dd(const double *a_hi, const double *a_lo,
-                         const double *b_hi, const double *b_lo,
-                         double *c_hi, double *c_lo, int m, int n, int k,
-                         cudaStream_t stream) {
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  mlgemm_dd_kernel<<<grid, THREADS, 0, stream>>>(a_hi, a_lo, b_hi, b_lo,
-                                                 c_hi, c_lo, m, n, k);
+// C = A @ B at KLIMBS limbs over `batch` entries: a, b, c point at KLIMBS
+// limb pointers each (host arrays); A (m, k), B (k, n), C (m, n) per entry,
+// row-major contiguous f64 on the device, entry z of A at a[l] + z *
+// stride_a (0: shared), of B likewise, of C at z * m * n.  Launches on
+// `stream`; returns the launch's cudaGetLastError() (0 on success).
+extern "C" int mlgemm(const double *const *a, const double *const *b,
+                      double *const *c, int m, int n, int k, int batch,
+                      long long stride_a, long long stride_b,
+                      cudaStream_t stream) {
+  In ai, bi;
+  Out co;
+  for (int l = 0; l < K; ++l) {
+    ai.p[l] = a[l];
+    bi.p[l] = b[l];
+    co.p[l] = c[l];
+  }
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
+  mlgemm_kernel<<<grid, THREADS, 0, stream>>>(ai, bi, co, m, n, k, stride_a,
+                                              stride_b);
   return (int)cudaGetLastError();
 }

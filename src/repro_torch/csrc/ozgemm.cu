@@ -1,50 +1,63 @@
-// Kernel #2: the fused Ozaki-slice GEMM at dd, with the Rgemm epilogue
-// fused into its drain.
+// Kernel #2: the fused Ozaki-slice GEMM at KLIMBS limbs (2 = dd, 3 = td,
+// 4 = qd), f64 slices, with the Rgemm epilogue fused into its drain and an
+// optional batch grid axis.
 //
 // Replaces the Pallas kernel repro/kernels/ozgemm.py (_ozgemm_kernel /
 // ozgemm_kernel_call, with _slab_update and _fold_diagonal): the engine's
-// `ozaki-pallas` backend at 2 limbs, f64 slices, f64 accumulation.
+// `ozaki-pallas` backend, f64 slices, f64 accumulation.  The build compiles
+// this file once per limb count (-DKLIMBS=2|3|4, see kernels/_build.py).
 //
 // What it computes, per 64x64 output tile and per K slab of the plan's
 // depth bk, in slab order:
-//   1. the per-row max mu of |A.hi| over the slab and the per-column max of
-//      |B.hi|; the anchor sigma = pow2_near(mu) * 2^(53-beta);
-//   2. n_slices error-free slices per element, s = (hi + sigma) - sigma
-//      (never reassociated or contracted), the dd residual updated by
-//      dd.add(r, (-s, -0)), then sigma *= 2^-beta;
+//   1. the per-row max mu of |A limb 0| over the slab and the per-column
+//      max of |B limb 0|; the anchor sigma = pow2_near(mu) * 2^(53-beta);
+//   2. n_slices error-free slices per element, s = (r0 + sigma) - sigma
+//      (never reassociated or contracted), the residual r updated in its
+//      own tier by mp.sub(r, from_float(s)) -- dd.add at dd, renorm_list
+//      over 2k terms at td/qd -- then sigma *= 2^-beta;
 //   3. for each diagonal d = 0..n_diag-1, the sum in f64 of the pair dots
-//      sa[s] . sb[t] with s + t = d, folded into the dd accumulator with
-//      dd.add_float.
-// The drain applies the `none` / `alpha` / `full` epilogue (alpha * acc,
-// plus beta * C, where beta == 0 selects zero so C's NaN/Inf never leak).
-// beta, n_slices and bk come from the plan; nothing is re-derived here.
-// The bits depend on bk, beta and n_slices, not on the tile size, and the
-// plain version (repro_torch/kernels/ozgemm.py, ozgemm_plain) agrees with
-// this kernel bit for bit.
+//      sa[s] . sb[t] with s + t = d, folded into the accumulator once:
+//      dd.add_float at dd, renorm_list(acc + [dsum], k, sweeps=3) at td/qd.
+// The drain applies the `none` / `alpha` / `full` epilogue in tier
+// arithmetic (alpha * acc, plus beta * C, where beta == 0 selects zero so
+// C's NaN/Inf never leak).  beta, n_slices and bk come from the plan;
+// nothing is re-derived here.  The bits depend on bk, beta and n_slices,
+// not on the tile size, and the plain version (repro_torch/kernels/
+// ozgemm.py, ozgemm_plain) agrees with this kernel bit for bit.
+//
+// Batching: blockIdx.z walks the flattened batch; A, B and C carry batch
+// strides in elements (0 for an operand shared by every entry).
 //
 // Bound on the H100: compute.  The pair dots are 2*m*n*k*P flops (P pair
-// dots per slab, 15 at n_slices=5) against the 34 TFLOP/s f64 peak; the
-// extraction adds ~22 operations per operand element per slice and the
-// folds 10 per output per diagonal per slab.  The f64 tensor cores (67
-// TFLOP/s, DMMA) are the later design: every pair product is exact and
+// dots per slab: 15 at dd's 5 slices, 36 at td's 8, 55 at qd's 10) against
+// the 34 TFLOP/s f64 peak; the extraction adds a tier subtraction per
+// operand element per slice and the folds a renormalization per output
+// per diagonal per slab (chip_smoke.py counts both).  The f64 tensor cores
+// (67 TFLOP/s, DMMA) are the later design: every pair product is exact and
 // every diagonal sum is exact by the slice_params headroom, so any
 // summation order, and fused multiply-add, give the same bits.  That is
 // also why the dot loop below uses fma() explicitly: the one place in the
 // port where fusing cannot change a bit.
 //
 // Design: one CTA of 256 threads per 64x64 output tile, a 4x4 micro-tile
-// of dd accumulators per thread in registers.  Per slab the CTA extracts
-// both operands' slices into shared memory (n_slices * bk * (64 + 64) f64
-// values, 80 KB at bk=16, n_slices=5: dynamic shared memory above 48 KB),
-// then runs the diagonal dots out of shared memory.  Ragged edges are
-// masked; a zero entry slices to zero and leaves every max unchanged, so
-// masking equals the reference's zero padding.
+// of K-limb accumulators per thread in registers.  Per slab the CTA
+// extracts both operands' slices into shared memory (n_slices * bk *
+// (64 + 64) f64 values: 80 KB at dd, 128 KB at td, 160 KB at qd, bk = 16;
+// dynamic shared memory above 48 KB), then runs the diagonal dots out of
+// shared memory.  Ragged edges are masked; a zero entry slices to zero and
+// leaves every max unchanged, so masking equals the reference's padding.
 #include <cuda_runtime.h>
 
 #include "dd_device.cuh"
+#include "ml_device.cuh"
+
+#ifndef KLIMBS
+#error "build with -DKLIMBS=2, 3 or 4"
+#endif
 
 namespace {
 
+constexpr int K = KLIMBS;
 constexpr int BM = 64, BN = 64;
 constexpr int TM = 4, TN = 4;
 constexpr int TX = BN / TN, TY = BM / TM;  // 16 x 16 threads
@@ -52,6 +65,13 @@ constexpr int THREADS = TX * TY;
 constexpr int MAX_SLICES = 16;
 
 enum Epilogue { kNone = 0, kAlpha = 1, kFull = 2 };
+
+struct In {
+  const double *p[K];
+};
+struct Out {
+  double *p[K];
+};
 
 // _pow2_near of core/ozaki.py: mu / mantissa(mu) == 2^exponent(mu).
 __device__ __forceinline__ double pow2_near(double mu) {
@@ -61,29 +81,78 @@ __device__ __forceinline__ double pow2_near(double mu) {
   return __ddiv_rn(mu, m);
 }
 
+// r -= s in the residual's tier (mp.sub(r, mp.from_float(s))).
+__device__ __forceinline__ void sub_slice(double (&r)[K], double s) {
+  if constexpr (K == 2) {
+    dd::add_to(r[0], r[1], -s, -0.0);
+  } else {
+    double neg[K], out[K];
+    neg[0] = -s;
+#pragma unroll
+    for (int l = 1; l < K; ++l) neg[l] = -0.0;
+    ml::add_limbs<K>(r, neg, out);
+#pragma unroll
+    for (int l = 0; l < K; ++l) r[l] = out[l];
+  }
+}
+
 // Slices of one operand element on its row's (or column's) anchor ladder;
 // out[s * stride] receives slice s.
-__device__ __forceinline__ void extract(double hi, double lo, double sigma,
-                                        bool nonzero, int beta, int n_slices,
-                                        double *out, int stride) {
+__device__ __forceinline__ void extract(double (&r)[K], double sigma, bool nonzero,
+                                        int beta, int n_slices, double *out,
+                                        int stride) {
   const double step = dd::pow2(-beta);
-  double rh = hi, rl = lo;
   for (int s = 0; s < n_slices; ++s) {
-    double sl = nonzero ? dd::sub(dd::add(rh, sigma), sigma) : 0.0;
+    double sl = nonzero ? dd::sub(dd::add(r[0], sigma), sigma) : 0.0;
     out[s * stride] = sl;
-    dd::add_to(rh, rl, -sl, -0.0);
+    sub_slice(r, sl);
     sigma = dd::mul(sigma, step);
   }
 }
 
+// acc += one diagonal's exact f64 sum, in acc's tier.
+__device__ __forceinline__ void fold(double (&acc)[K], double dsum) {
+  if constexpr (K == 2) {
+    dd::add_float_to(acc[0], acc[1], dsum);
+  } else {
+    double t[K + 1];
+#pragma unroll
+    for (int l = 0; l < K; ++l) t[l] = acc[l];
+    t[K] = dsum;
+    ml::renorm<K>(t, acc);
+  }
+}
+
+// out = x * y in the tier (mp.mul, x first).
+__device__ __forceinline__ void tier_mul(const double (&x)[K], const double (&y)[K],
+                                         double (&out)[K]) {
+  if constexpr (K == 2) {
+    dd::mul(x[0], x[1], y[0], y[1], out[0], out[1]);
+  } else {
+    ml::mul_limbs<K>(x, y, out);
+  }
+}
+
+// acc += y in the tier (mp.add).
+__device__ __forceinline__ void tier_add_to(double (&acc)[K], const double (&y)[K]) {
+  if constexpr (K == 2) {
+    dd::add_to(acc[0], acc[1], y[0], y[1]);
+  } else {
+    double out[K];
+    ml::add_limbs<K>(acc, y, out);
+#pragma unroll
+    for (int l = 0; l < K; ++l) acc[l] = out[l];
+  }
+}
+
+// BATCHED = false is the unbatched launch: no per-entry offset arithmetic,
+// which measurably slowed the dd kernel at 4096^3 on the H100.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
-ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_lo,
-                 const double *__restrict__ b_hi, const double *__restrict__ b_lo,
-                 const double *__restrict__ alpha, const double *__restrict__ beta_s,
-                 const double *__restrict__ c_hi, const double *__restrict__ c_lo,
-                 double *__restrict__ o_hi, double *__restrict__ o_lo,
-                 int m, int n, int k, int bk, int beta, int n_slices,
-                 int n_diag, int epilogue) {
+ozgemm_kernel(In a, In b, const double *__restrict__ alpha,
+              const double *__restrict__ beta_s, In c, Out o, int m, int n,
+              int k, int bk, int beta, int n_slices, int n_diag, int epilogue,
+              long long stride_a, long long stride_b, long long stride_c) {
   extern __shared__ double smem[];
   double *sa = smem;                       // [n_slices][bk][BM]
   double *sb = sa + n_slices * bk * BM;    // [n_slices][bk][BN]
@@ -94,13 +163,17 @@ ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_l
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const long long za = BATCHED ? blockIdx.z * stride_a : 0;
+  const long long zb = BATCHED ? blockIdx.z * stride_b : 0;
   const double up = dd::pow2(53 - beta);
 
-  double acc_hi[TM][TN], acc_lo[TM][TN];
+  double acc[TM][TN][K];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc_hi[i][j] = acc_lo[i][j] = 0.0;
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int l = 0; l < K; ++l) acc[i][j][l] = 0.0;
 
   for (int k0 = 0; k0 < k; k0 += bk) {
     const int kd = min(bk, k - k0);
@@ -113,8 +186,10 @@ ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_l
       double mu = 0.0;
       if (g < (is_a ? m : n)) {
         for (int kk = 0; kk < kd; ++kk) {
-          double x = fabs(is_a ? a_hi[(size_t)g * k + k0 + kk]
-                               : b_hi[(size_t)(k0 + kk) * n + g]);
+          const double *src =
+              is_a ? &a.p[0][za + (long long)g * k + k0 + kk]
+                   : &b.p[0][zb + (long long)(k0 + kk) * n + g];
+          double x = fabs(__ldg(src));
           mu = (x > mu || isnan(x)) && !isnan(mu) ? x : mu;
         }
       }
@@ -128,17 +203,23 @@ ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_l
       int r = idx / bk, kk = idx % bk;
       int gr = row0 + r;
       bool ok = gr < m && kk < kd;
-      size_t off = (size_t)gr * k + k0 + kk;
-      extract(ok ? a_hi[off] : 0.0, ok ? a_lo[off] : 0.0, sig_a[r],
-              nz_a[r] && ok, beta, n_slices, sa + kk * BM + r, bk * BM);
+      long long off = za + (long long)gr * k + k0 + kk;
+      double v[K];
+#pragma unroll
+      for (int l = 0; l < K; ++l) v[l] = ok ? __ldg(&a.p[l][off]) : 0.0;
+      extract(v, sig_a[r], nz_a[r] && ok, beta, n_slices, sa + kk * BM + r,
+              bk * BM);
     }
     for (int idx = threadIdx.x; idx < bk * BN; idx += THREADS) {
-      int kk = idx / BN, c = idx % BN;
-      int gc = col0 + c;
+      int kk = idx / BN, cc = idx % BN;
+      int gc = col0 + cc;
       bool ok = gc < n && kk < kd;
-      size_t off = (size_t)(k0 + kk) * n + gc;
-      extract(ok ? b_hi[off] : 0.0, ok ? b_lo[off] : 0.0, sig_b[c],
-              nz_b[c] && ok, beta, n_slices, sb + kk * BN + c, bk * BN);
+      long long off = zb + (long long)(k0 + kk) * n + gc;
+      double v[K];
+#pragma unroll
+      for (int l = 0; l < K; ++l) v[l] = ok ? __ldg(&b.p[l][off]) : 0.0;
+      extract(v, sig_b[cc], nz_b[cc] && ok, beta, n_slices, sb + kk * BN + cc,
+              bk * BN);
     }
     __syncthreads();
     // 3. diagonals, most significant first; each exact sum folds once
@@ -167,32 +248,51 @@ ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_l
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) dd::add_float_to(acc_hi[i][j], acc_lo[i][j], dsum[i][j]);
+        for (int j = 0; j < TN; ++j) fold(acc[i][j], dsum[i][j]);
     }
     __syncthreads();
   }
 
   // drain: the fused Rgemm epilogue, then the store
-  const bool beta_zero = epilogue == kFull && beta_s[0] == 0.0 && beta_s[1] == 0.0;
+  double al[K], be[K];
+  bool beta_zero = epilogue == kFull;
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    al[l] = epilogue != kNone ? alpha[l] : 0.0;
+    be[l] = epilogue == kFull ? beta_s[l] : 0.0;
+    beta_zero = beta_zero && be[l] == 0.0;
+  }
+  const long long zc = BATCHED ? blockIdx.z * stride_c : 0;
+  const long long zo = BATCHED ? blockIdx.z * (long long)m * n : 0;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     int r = row0 + ty + TY * i;
     if (r >= m) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      int c = col0 + tx + TX * j;
-      if (c >= n) continue;
-      size_t off = (size_t)r * n + c;
-      double h = acc_hi[i][j], l = acc_lo[i][j];
-      if (epilogue != kNone) dd::mul(alpha[0], alpha[1], h, l, h, l);
-      if (epilogue == kFull) {
-        double bh, bl;
-        dd::mul(beta_s[0], beta_s[1], c_hi[off], c_lo[off], bh, bl);
-        if (beta_zero) bh = bl = 0.0;
-        dd::add_to(h, l, bh, bl);
+      int cc = col0 + tx + TX * j;
+      if (cc >= n) continue;
+      long long off = (long long)r * n + cc;
+      double res[K];
+#pragma unroll
+      for (int l = 0; l < K; ++l) res[l] = acc[i][j][l];
+      if (epilogue != kNone) {
+        double t[K];
+        tier_mul(al, res, t);
+#pragma unroll
+        for (int l = 0; l < K; ++l) res[l] = t[l];
       }
-      o_hi[off] = h;
-      o_lo[off] = l;
+      if (epilogue == kFull) {
+        double cv[K], bc[K];
+#pragma unroll
+        for (int l = 0; l < K; ++l) cv[l] = c.p[l][zc + off];
+        tier_mul(be, cv, bc);
+#pragma unroll
+        for (int l = 0; l < K; ++l) bc[l] = beta_zero ? 0.0 : bc[l];
+        tier_add_to(res, bc);
+      }
+#pragma unroll
+      for (int l = 0; l < K; ++l) o.p[l][zo + off] = res[l];
     }
   }
 }
@@ -200,32 +300,43 @@ ozgemm_dd_kernel(const double *__restrict__ a_hi, const double *__restrict__ a_l
 }  // namespace
 
 // Shared memory one CTA needs for a slab depth and slice count.
-extern "C" int ozgemm_dd_smem_bytes(int bk, int n_slices) {
+extern "C" int ozgemm_smem_bytes(int bk, int n_slices) {
   return (int)(n_slices * bk * (BM + BN) * sizeof(double) +
                (BM + BN) * (sizeof(double) + sizeof(bool)));
 }
 
-// out = epilogue(A @ B), dd limbs: A (m, k), B (k, n), C and out (m, n),
-// all row-major contiguous f64 on the device; alpha and beta_s point at
-// two limbs each ({hi, lo}).  epilogue: 0 none, 1 alpha (alpha * AB),
-// 2 full (alpha * AB + beta * C).  Launches on `stream`; returns the
-// launch's cudaGetLastError() (0 on success).
-extern "C" int ozgemm_dd(const double *a_hi, const double *a_lo,
-                         const double *b_hi, const double *b_lo,
-                         const double *alpha, const double *beta_s,
-                         const double *c_hi, const double *c_lo,
-                         double *o_hi, double *o_lo, int m, int n, int k,
-                         int bk, int beta, int n_slices, int n_diag,
-                         int epilogue, cudaStream_t stream) {
+// out = epilogue(A @ B) at KLIMBS limbs over `batch` entries.  a, b, c and
+// o point at KLIMBS limb pointers each (host arrays; c may hold nulls
+// unless epilogue == 2); A (m, k), B (k, n), C and out (m, n) per entry,
+// row-major contiguous f64 on the device; entry z of A starts at
+// a[l] + z * stride_a (0: shared), of B and C likewise, of out at
+// z * m * n.  alpha and beta_s point at KLIMBS limbs each.  epilogue:
+// 0 none, 1 alpha (alpha * AB), 2 full (alpha * AB + beta * C).  Launches
+// on `stream`; returns the launch's cudaGetLastError() (0 on success).
+extern "C" int ozgemm(const double *const *a, const double *const *b,
+                      const double *alpha, const double *beta_s,
+                      const double *const *c, double *const *o, int m, int n,
+                      int k, int batch, long long stride_a, long long stride_b,
+                      long long stride_c, int bk, int beta, int n_slices,
+                      int n_diag, int epilogue, cudaStream_t stream) {
   if (n_slices < 1 || n_slices > MAX_SLICES || bk < 1)
     return (int)cudaErrorInvalidValue;
-  int smem = ozgemm_dd_smem_bytes(bk, n_slices);
+  In ai, bi, ci;
+  Out oo;
+  for (int l = 0; l < K; ++l) {
+    ai.p[l] = a[l];
+    bi.p[l] = b[l];
+    ci.p[l] = c[l];
+    oo.p[l] = o[l];
+  }
+  int smem = ozgemm_smem_bytes(bk, n_slices);
+  auto kernel = batch > 1 ? ozgemm_kernel<true> : ozgemm_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ozgemm_dd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  ozgemm_dd_kernel<<<grid, THREADS, smem, stream>>>(
-      a_hi, a_lo, b_hi, b_lo, alpha, beta_s, c_hi, c_lo, o_hi, o_lo, m, n, k,
-      bk, beta, n_slices, n_diag, epilogue);
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      ai, bi, alpha, beta_s, ci, oo, m, n, k, bk, beta, n_slices, n_diag,
+      epilogue, stride_a, stride_b, stride_c);
   return (int)cudaGetLastError();
 }

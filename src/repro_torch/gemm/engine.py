@@ -10,15 +10,25 @@ plain version drains with), so results match cell for cell.
 The reference pads operands to block multiples for its Pallas grids; the
 CUDA kernels mask ragged edges themselves (zero padding is a bitwise no-op
 on a normalized accumulator, so the two agree), and the engine only makes
-operands contiguous.  Batched, sharded, streamed and guarded execution,
-failover and the plan cache are not ported yet (``make_plan`` raises on
-their options).
+operands contiguous.
+
+Batched execution mirrors the reference's ``_execute_batched``: leading
+batch dims broadcast and flatten to one batch axis, an operand without
+batch dims is shared (not copied), and the output takes the batch shape
+back.  Where the reference vmaps the planned 2-D kernel, each backend here
+takes the batch axis itself: the two CUDA kernels as a grid axis (one
+launch per call), the tensor-op backends by broadcasting.  As in the
+reference, a batched call applies the epilogue as a post-step on every
+backend.  Sharded, streamed and guarded execution, failover and the plan
+cache are not ported yet (``make_plan`` raises on their options).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._device import common_device
@@ -66,8 +76,8 @@ def _execute_ozaki_pallas(plan: GemmPlan, a, b, alpha=None, beta=None,
     """Kernel #2, optionally with the in-drain epilogue."""
     from ..kernels.ozgemm import ozgemm_kernel_call
 
-    m, k = a.shape
-    n = b.shape[1]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     bk = _clamp_blocks(m, k, n, plan.blocks)["bk"]
     sbeta, n_slices, sdt, adt = _ozaki_pallas_params(plan, bk)
     operands = [*mp.limbs(_contiguous(a)), *mp.limbs(_contiguous(b))]
@@ -121,6 +131,26 @@ def _execute_2d(plan: GemmPlan, a, b):
     raise ValueError(f"unknown backend in plan: {plan.backend!r}")
 
 
+def _execute_batched(plan: GemmPlan, a, b):
+    """The planned backend over leading batch dims (the reference vmaps
+    ``_execute_2d``; here every backend takes one batch axis)."""
+    a_batch, b_batch = tuple(a.shape[:-2]), tuple(b.shape[:-2])
+    batch = tuple(np.broadcast_shapes(a_batch, b_batch))
+    nb = math.prod(batch)
+
+    def flat(x, had_batch):
+        if not had_batch:
+            return x  # shared by every batch entry
+        tgt = batch + tuple(x.shape[-2:])
+        return mp.map_limbs(
+            lambda l: torch.broadcast_to(l, tgt).reshape(
+                (nb,) + tuple(l.shape[-2:])), x)
+
+    out = _execute_2d(plan, flat(a, bool(a_batch)), flat(b, bool(b_batch)))
+    m, n = out.shape[-2:]
+    return mp.map_limbs(lambda l: l.reshape(batch + (m, n)), out)
+
+
 def _as_scalar(x, precision: str, like: torch.Tensor):
     """Coerce a python float / tier scalar to the operands' tier."""
     try:
@@ -146,10 +176,12 @@ def _static_zero(x) -> bool:
 def execute(plan: GemmPlan, a, b, *, alpha=None, beta=None, c=None):
     """Run C = alpha * (A @ B) + beta * C under a plan.
 
-    A: (m, k), B: (k, n).  BLAS semantics as in the reference: with ``c``
-    alone, alpha = beta = 1 (C is added, never dropped); ``beta == 0``
-    means C is **not read** (NaN/Inf in C cannot leak); a nonzero beta
-    without ``c`` raises ``ValueError``.  Operands must share one device.
+    A: (..., m, k), B: (..., k, n); batch dims need a plan made with
+    ``batch_shape=`` (``matmul`` does this).  BLAS semantics as in the
+    reference: with ``c`` alone, alpha = beta = 1 (C is added, never
+    dropped); ``beta == 0`` means C is **not read** (NaN/Inf in C cannot
+    leak); a nonzero beta without ``c`` raises ``ValueError``.  Operands
+    must share one device.
     """
     prec = mp.precision_of(a)
     if mp.precision_of(b) != prec:
@@ -159,10 +191,6 @@ def execute(plan: GemmPlan, a, b, *, alpha=None, beta=None, c=None):
         raise ValueError(
             f"plan is for precision={plan.precision!r} but operands are "
             f"{prec!r}; rebuild with make_plan(..., precision={prec!r})")
-    if len(a.shape) != 2 or len(b.shape) != 2:
-        raise NotImplementedError(
-            "batched operands are not ported to repro_torch yet "
-            "(ROADMAP.md, Open items: 'Batched execution')")
     if a.shape[-1] != b.shape[-2]:
         raise ValueError(f"inner dims mismatch: {a.shape} x {b.shape}")
     lead = mp.limbs(a)[0]
@@ -188,6 +216,12 @@ def execute(plan: GemmPlan, a, b, *, alpha=None, beta=None, c=None):
                   *(mp.limbs(alpha) if alpha is not None else ()),
                   *(mp.limbs(beta) if beta is not None else ()),
                   *(mp.limbs(c) if c is not None else ()))
+    if len(a.shape) > 2 or len(b.shape) > 2:
+        if plan.batch == "none":
+            raise ValueError(
+                "plan was made for 2-D operands but inputs have batch dims; "
+                "rebuild with batch_shape= (engine.matmul does this)")
+        return _apply_epilogue(_execute_batched(plan, a, b), alpha, beta, c)
     if alpha is not None and plan.backend == "ozaki-pallas":
         # fused drain: the epilogue runs before the C' tile leaves the CTA
         return _execute_ozaki_pallas(plan, a, b, alpha=alpha, beta=beta,
@@ -216,5 +250,7 @@ def matmul(a, b, *, plan: Optional[GemmPlan] = None, alpha=None, beta=None,
         lead = mp.limbs(a)[0]
         overrides.setdefault("precision", mp.precision_of(a))
         overrides.setdefault("platform", lead.device.type)
+        overrides.setdefault("batch_shape", tuple(np.broadcast_shapes(
+            a.shape[:-2], b.shape[:-2])))
         plan = make_plan(m, k, n, dtype=lead.dtype, **overrides)
     return execute(plan, a, b, alpha=alpha, beta=beta, c=c)

@@ -9,8 +9,8 @@ crosses over through ``repro_torch.interop.plan_from_dict``.
 
 Backends keep their reference names.  On a CUDA tensor:
 
-  * ``pallas``       -> kernel #1, the hand-written dd systolic-tile
-                        kernel ``csrc/mlgemm.cu`` (``kernels/mlgemm.py``);
+  * ``pallas``       -> kernel #1, the hand-written systolic-tile kernel
+                        ``csrc/mlgemm.cu`` (``kernels/mlgemm.py``);
   * ``ozaki-pallas`` -> kernel #2, the fused Ozaki-slice kernel
                         ``csrc/ozgemm.cu`` (``kernels/ozgemm.py``), with the
                         alpha/beta epilogue fused into its drain;
@@ -20,10 +20,12 @@ Backends keep their reference names.  On a CUDA tensor:
                         (``kernels/ops.py``);
   * ``ref``          -> the O(m*k*n) oracle (``kernels/ref.py``).
 
-On a CPU tensor each kernel wrapper runs its plain PyTorch version.  The
-plan cache, autotuner, guarded execution, SUMMA sharding, K streaming and
-batched execution are not ported yet: their options raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+On a CPU tensor each kernel wrapper runs its plain PyTorch version.
+``batch_shape=`` plans a batched call (``batch="vmap"``, the reference's
+name; the CUDA kernels take the batch as a grid axis).  The plan cache,
+autotuner, guarded execution, SUMMA sharding and K streaming are not
+ported yet: their options raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 ``interpret`` has no meaning without Pallas and is not a field here.
 """
 
@@ -74,7 +76,7 @@ class GemmPlan:
     limb_dtype: str                   # 'float64' (dd64)
     platform: str                     # 'cuda' | 'cpu'
     precision: str = "dd"             # tier: dd (2 limbs) | td (3) | qd (4)
-    batch: str = "none"               # batched execution: not ported yet
+    batch: str = "none"               # none | vmap (a batch axis)
     batch_shape: Tuple[int, ...] = ()
     shard_axis: Optional[str] = None  # SUMMA sharding: not ported yet
     shard_axis_n: Optional[str] = None
@@ -151,7 +153,8 @@ def make_plan(m: int, k: int, n: int, *, dtype=torch.float64,
               n_slices: Optional[int] = None,
               target_bits: Optional[int] = None, full: Optional[bool] = None,
               check: str = "none") -> GemmPlan:
-    """Plan one GEMM workload (m, k) @ (k, n) from heuristics and overrides.
+    """Plan one GEMM workload (batch_shape) x (m, k) @ (k, n) from
+    heuristics and overrides.
 
     ``platform=None`` means ``cuda`` (and raises without CUDA).
     """
@@ -160,8 +163,6 @@ def make_plan(m: int, k: int, n: int, *, dtype=torch.float64,
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"one of {sorted(PRECISIONS)}")
-    if tuple(batch_shape):
-        _not_ported("batched execution (batch_shape=)", "Batched execution")
     if mesh is not None or shard_axis is not None \
             or shard_axis_n is not None or k_panel is not None \
             or k_stream is not None or comm != "ring":
@@ -216,7 +217,8 @@ def make_plan(m: int, k: int, n: int, *, dtype=torch.float64,
 
     return GemmPlan(
         backend=be, limb_dtype=name(dtype), platform=platform,
-        precision=precision, slice_dtype=name(slice_dtype),
+        precision=precision, batch="vmap" if tuple(batch_shape) else "none",
+        batch_shape=tuple(batch_shape), slice_dtype=name(slice_dtype),
         acc_dtype=name(acc_dtype), n_slices=n_slices,
         slice_beta=slice_beta, target_bits=target_bits, full=full,
         source=source, **blocks)

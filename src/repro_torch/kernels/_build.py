@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded through ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  ``--fmad=false`` is load-bearing: contracting
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` once per limb count
+(``-DKLIMBS=2|3|4``: dd, td, qd) into its own shared library with a plain
+C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  ``--fmad=false`` is load-bearing: contracting
 a multiply into a following add collapses the error terms of the
 error-free transformations, and the kernels must repeat the plain
 versions' rounding sequence bit for bit.
@@ -10,7 +11,7 @@ versions' rounding sequence bit for bit.
 Libraries land in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edited
 source never loads a stale library.  ``build_all()`` starts one ``nvcc``
-per source, all at once, and waits for every one of them.
+per source and limb count, all at once, and waits for every one of them.
 """
 
 from __future__ import annotations
@@ -22,11 +23,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_all", "load", "BUILD_DIR", "CSRC"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "SOURCES", "LIMBS", "build_all", "load",
+           "pointers", "stream", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mlgemm", "ozgemm")
+SOURCES = ("mlgemm", "ozgemm", "mpops")
+LIMBS = (2, 3, 4)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -43,37 +48,40 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def _target(name: str, nlimbs: int) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh") and (
                 src.stem == name or src.suffix == ".cuh"):
             h.update(src.name.encode() + src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}{nlimbs}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every missing library in parallel; return {name: ptxas log}."""
+def build_all(names=SOURCES, counts=LIMBS) -> dict:
+    """Compile every missing library in parallel; return
+    {(name, nlimbs): ptxas log}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
         for name in names:
-            out = _target(name)
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+            for nl in counts:
+                out = _target(name, nl)
+                if out.exists():
+                    continue
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, f"-DKLIMBS={nl}", "-o",
+                       str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name, nl] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, out)
         logs = {}
-        for name, (proc, tmp, out) in procs.items():
+        for key, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+                raise RuntimeError(f"nvcc failed for {key[0]}.cu at "
+                                   f"KLIMBS={key[1]}:\n{log}")
             os.replace(tmp, out)
-            logs[name] = log
+            logs[key] = log
         return logs
     finally:
         for proc, _, _ in procs.values():
@@ -82,13 +90,27 @@ def build_all(names=SOURCES) -> dict:
                 proc.wait()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if missing."""
-    lib = _LIBS.get(name)
+def load(name: str, nlimbs: int) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` at ``nlimbs`` limbs,
+    built if missing."""
+    lib = _LIBS.get((name, nlimbs))
     if lib is None:
-        out = _target(name)
+        out = _target(name, nlimbs)
         if not out.exists():
-            build_all((name,))
+            build_all((name,), (nlimbs,))
         lib = ctypes.CDLL(str(out))
-        _LIBS[name] = lib
+        _LIBS[name, nlimbs] = lib
     return lib
+
+
+def stream(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device``
+    (``torch.cuda.current_stream`` builds a Stream object per call, a cost
+    the SDP loop's tens of thousands of small launches would feel)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def pointers(tensors):
+    """A C array of the tensors' device addresses (``None`` -> null)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])

@@ -3,43 +3,54 @@
 The port of ``repro.kernels.ozgemm``.  Per K slab of the plan's depth
 ``bk``: slice the A and B slabs on their slab-local anchor ladders
 (``core.ozaki._extract_slices``), sum each diagonal's pair dots exactly in
-f64, fold each diagonal into the dd accumulator with ``add_float``; the
-drain applies the Rgemm epilogue (``none`` | ``alpha`` | ``full``, with
-the beta == 0 select).  On a CUDA tensor the wrapper launches the
-hand-written Hopper kernel ``csrc/ozgemm.cu`` (see that file for its
-design and bound); on a CPU tensor it runs ``ozgemm_plain``, the same
-algorithm as tensor ops.  The two agree bit for bit on the card.
+f64, fold each diagonal into the k-limb accumulator (``dd.add_float`` at
+dd, ``renorm_list(acc + [dsum], k, sweeps=3)`` at td/qd); the drain
+applies the Rgemm epilogue (``none`` | ``alpha`` | ``full``, with the
+beta == 0 select) at k limbs.  On a CUDA tensor the wrapper launches the
+hand-written Hopper kernel ``csrc/ozgemm.cu`` at 2, 3 or 4 limbs (see
+that file for its design and bound); on a CPU tensor it runs
+``ozgemm_plain``, the same algorithm as tensor ops.  The two agree bit for
+bit on the card.
 
-Only dd at f64 slices / f64 accumulation is supported, on both devices:
-narrow slice dtypes and the td/qd folds are still to port, and the
-wrapper raises on them rather than take a path the kernel does not have.
+A, B and C may carry one leading batch axis (an operand without it is
+shared); on the card the batch is the kernel's third grid axis.  Only f64
+slices and f64 accumulation are supported, on both devices: the narrow
+slice dtypes are the TPU's MXU variant, still to port, and the wrapper
+raises on them rather than take a path the kernel does not have.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .._device import common_device
-from ..core import dd, mp
-from ..core.ozaki import _extract_slices, diagonal_sums
+from ..core import mp
+from ..core.ozaki import _extract_slices, _fold_diagonal_sum, diagonal_sums
 from . import _build
 
-__all__ = ["ozgemm_kernel_call", "ozgemm_plain", "EPILOGUES", "launches"]
+__all__ = ["ozgemm_kernel_call", "ozgemm_plain", "EPILOGUES", "launches",
+           "SMEM_LIMIT"]
 
 EPILOGUES = ("none", "alpha", "full")
 
-# launches of the CUDA kernel in this process (never of the plain version)
-launches = 0
+# launches of the CUDA kernel in this process per limb count (never of the
+# plain version)
+launches = dict.fromkeys(_build.LIMBS, 0)
+
+# shared memory one Hopper block may opt in to, and the batch grid limit
+SMEM_LIMIT = 232448
+MAX_BATCH = 65535
 
 
 def _slab_update(acc, a, b, *, beta, n_slices, full):
     """One K slab: extract slices, run the diagonal dots, fold into acc."""
-    sa = _extract_slices(a, beta, n_slices, axis=1)
-    sb = _extract_slices(b, beta, n_slices, axis=0)
+    sa = _extract_slices(a, beta, n_slices, axis=-1)
+    sb = _extract_slices(b, beta, n_slices, axis=-2)
     for _, dsum in diagonal_sums(sa, sb, n_slices, full, torch.float64):
-        acc = dd.add_float(acc, dsum)
+        acc = _fold_diagonal_sum(acc, dsum)
     return acc
 
 
@@ -57,12 +68,16 @@ def apply_epilogue(res, alpha=None, beta=None, c=None):
 
 def ozgemm_plain(a, b, *, bk, beta, n_slices, full=False, alpha=None,
                  beta_s=None, c=None):
-    """The kernel's algorithm as tensor ops (dd values in, dd value out)."""
-    m, k = a.shape
-    n = b.shape[1]
-    acc = dd.zeros((m, n), dtype=a.hi.dtype, device=a.hi.device)
+    """The kernel's algorithm as tensor ops (tier values in, tier value
+    out; leading batch dims broadcast)."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = np.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    lead = mp.limbs(a)[0]
+    acc = mp.zeros(batch + (m, n), mp.precision_of(a), dtype=lead.dtype,
+                   device=lead.device)
     for k0 in range(0, k, bk):
-        acc = _slab_update(acc, a[:, k0:k0 + bk], b[k0:k0 + bk, :],
+        acc = _slab_update(acc, a[..., k0:k0 + bk], b[..., k0:k0 + bk, :],
                            beta=beta, n_slices=n_slices, full=full)
     return apply_epilogue(acc, alpha, beta_s, c)
 
@@ -75,74 +90,92 @@ def _split_operands(operands, epilogue):
     if rem or nl not in mp.PRECISIONS.values():
         raise ValueError(f"{len(operands)} operands do not fit epilogue "
                          f"{epilogue!r}")
-    if nl != 2:
-        raise NotImplementedError(
-            f"the fused Ozaki kernel is dd only; the {nl}-limb fold is "
-            f"still to port (ROADMAP.md, 'TPU kernels to port')")
-    groups = [operands[i:i + 2] for i in range(0, len(operands), 2)]
+    groups = [operands[i:i + nl] for i in range(0, len(operands), nl)]
     a, b = groups[0], groups[1]
     alpha = groups[2] if epilogue != "none" else None
     beta_s, c = (groups[3], groups[4]) if epilogue == "full" else (None, None)
-    return a, b, alpha, beta_s, c
+    return nl, a, b, alpha, beta_s, c
 
 
 def _check(operands, a, b, alpha, beta_s, c):
     dev = common_device(*operands)
     for l in operands:
-        if l.dtype != torch.float64 or l.dim() != 2 or not l.is_contiguous():
-            raise ValueError("kernel operands must be contiguous 2-D "
+        if l.dtype != torch.float64 or l.dim() not in (2, 3) \
+                or not l.is_contiguous():
+            raise ValueError("kernel operands must be contiguous 2-D or 3-D "
                              f"float64 tensors, got {l.dtype} "
                              f"{tuple(l.shape)} contiguous={l.is_contiguous()}")
-    m, k = a[0].shape
-    n = b[0].shape[1]
-    want = [(m, k)] * 2 + [(k, n)] * 2
+    m, k = a[0].shape[-2:]
+    n = b[0].shape[-1]
+    batches = {l.shape[0] for l in (*a, *b, *(c or ())) if l.dim() == 3}
+    if len(batches) > 1:
+        raise ValueError(f"batch sizes differ: {sorted(batches)}")
+    batch = batches.pop() if batches else None
+    if batch is not None and batch > MAX_BATCH:
+        raise ValueError(f"batch {batch} exceeds the kernel's grid limit "
+                         f"{MAX_BATCH}")
+
+    def want(shape, ls):
+        return [shape if l.dim() == 2 else (batch,) + shape for l in ls]
+
+    want_s = want((m, k), a) + want((k, n), b)
     got = [tuple(l.shape) for l in (*a, *b)]
     for pair in (alpha, beta_s):
         if pair is not None:
-            want += [(1, 1)] * 2
+            want_s += [(1, 1)] * len(pair)
             got += [tuple(l.shape) for l in pair]
     if c is not None:
-        want += [(m, n)] * 2
+        want_s += want((m, n), c)
         got += [tuple(l.shape) for l in c]
-    if got != want:
-        raise ValueError(f"operand shapes {got} do not match {want}")
-    return dev
+    if got != want_s:
+        raise ValueError(f"operand shapes {got} do not match {want_s}")
+    return dev, batch
 
 
-def _launch(a, b, alpha, beta_s, c, *, bk, beta, n_slices, n_diag, epi):
-    global launches
-    m, k = a[0].shape
-    n = b[0].shape[1]
+def smem_bytes(nl, bk, n_slices):
+    """Shared memory one CTA asks for (as ``ozgemm_smem_bytes``)."""
+    return _build.load("ozgemm", nl).ozgemm_smem_bytes(bk, n_slices)
+
+
+def _launch(nl, a, b, alpha, beta_s, c, batch, *, bk, beta, n_slices,
+            n_diag, epi):
+    m, k = a[0].shape[-2:]
+    n = b[0].shape[-1]
     dev = a[0].device
-    out = [torch.empty((m, n), dtype=torch.float64, device=dev)
-           for _ in range(2)]
-    if m == 0 or n == 0:
+    lead = (batch,) if batch is not None else ()
+    out = [torch.empty(lead + (m, n), dtype=torch.float64, device=dev)
+           for _ in range(nl)]
+    if m == 0 or n == 0 or batch == 0:
         return out
-    # the drain reads each scalar as {hi, lo} from one 2-element buffer
+    smem = smem_bytes(nl, bk, n_slices)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"bk={bk} x n_slices={n_slices} at {nl} limbs asks {smem} B of "
+            f"shared memory per block; Hopper allows {SMEM_LIMIT}")
+    # the drain reads each scalar's limbs from one buffer
     sc_alpha = torch.cat([l.reshape(1) for l in alpha]) if alpha else None
     sc_beta = torch.cat([l.reshape(1) for l in beta_s]) if beta_s else None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def stride(ls, per):
+        return per if ls and ls[0].dim() == 3 else 0
 
-    lib = _build.load("ozgemm")
-    fn = lib.ozgemm_dd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
+    fn = _build.load("ozgemm", nl).ozgemm
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+        [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(a[0].data_ptr(), a[1].data_ptr(), b[0].data_ptr(),
-             b[1].data_ptr(), ptr(sc_alpha), ptr(sc_beta),
-             ptr(c[0] if c else None), ptr(c[1] if c else None),
-             out[0].data_ptr(), out[1].data_ptr(), m, n, k, bk, beta,
-             n_slices, n_diag, EPILOGUES.index(epi), stream)
+    err = fn(_build.pointers(a), _build.pointers(b),
+             None if sc_alpha is None else sc_alpha.data_ptr(),
+             None if sc_beta is None else sc_beta.data_ptr(),
+             _build.pointers(c or [None] * nl), _build.pointers(out),
+             m, n, k, batch or 1, stride(a, m * k), stride(b, k * n),
+             stride(c, m * n), bk, beta, n_slices, n_diag,
+             EPILOGUES.index(epi), _build.stream(dev))
     if err:
-        smem = lib.ozgemm_dd_smem_bytes(bk, n_slices)
         raise RuntimeError(
-            f"ozgemm_dd launch failed: CUDA error {err} (bk={bk} x "
-            f"n_slices={n_slices} asks {smem} B of shared memory per block; "
-            f"Hopper allows 232448)")
-    launches += 1
+            f"ozgemm launch at {nl} limbs failed: CUDA error {err} (bk={bk} "
+            f"x n_slices={n_slices} asks {smem} B of shared memory per "
+            f"block)")
+    launches[nl] += 1
     return out
 
 
@@ -152,30 +185,32 @@ def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
                        epilogue: str = "none", full: bool = False):
     """Raw kernel invocation.
 
-    ``operands``: 2 A limbs (m, k) + 2 B limbs (k, n); with
-    ``epilogue="alpha"`` also 2 (1, 1) alpha limbs; with ``"full"``
-    additionally 2 (1, 1) beta limbs and 2 (m, n) C limbs.  ``bk``,
-    ``beta`` and ``n_slices`` are the plan's solved values.  Any shape:
-    ragged edges are the kernel's own business.  Returns [out_hi, out_lo].
+    ``operands``: nlimbs A limbs (m, k) + nlimbs B limbs (k, n), nlimbs =
+    2, 3 or 4; with ``epilogue="alpha"`` also nlimbs (1, 1) alpha limbs;
+    with ``"full"`` additionally nlimbs (1, 1) beta limbs and nlimbs (m, n)
+    C limbs.  A, B and C limbs may carry a leading batch axis (nb, ...);
+    without it an operand is shared.  ``bk``, ``beta`` and ``n_slices`` are
+    the plan's solved values.  Any shape: ragged edges are the kernel's own
+    business.  Returns the nlimbs output limbs.
     """
     if slice_dtype_name != "float64" or acc_dtype_name != "float64":
         raise NotImplementedError(
             f"slices {slice_dtype_name} / accumulator {acc_dtype_name}: the "
             f"fused Ozaki kernel takes f64/f64 only; narrow slice dtypes "
             f"are still to port (ROADMAP.md, 'TPU kernels to port')")
-    a, b, alpha, beta_s, c = _split_operands(operands, epilogue)
-    dev = _check(operands, a, b, alpha, beta_s, c)
+    nl, a, b, alpha, beta_s, c = _split_operands(operands, epilogue)
+    dev, batch = _check(operands, a, b, alpha, beta_s, c)
     if bk < 1 or not 1 <= n_slices <= 16:
         raise ValueError(f"bk={bk}, n_slices={n_slices} out of range")
     if dev.type == "cuda":
         n_diag = 2 * n_slices - 1 if full else n_slices
-        return _launch(a, b, alpha, beta_s, c, bk=bk, beta=beta,
+        return _launch(nl, a, b, alpha, beta_s, c, batch, bk=bk, beta=beta,
                        n_slices=n_slices, n_diag=n_diag, epi=epilogue)
 
-    def val(pair):
-        return None if pair is None else dd.DD(*pair)
+    def val(ls):
+        return None if ls is None else mp.from_limbs(ls)
 
-    out = ozgemm_plain(dd.DD(*a), dd.DD(*b), bk=bk, beta=beta,
-                       n_slices=n_slices, full=full, alpha=val(alpha),
-                       beta_s=val(beta_s), c=val(c))
+    out = ozgemm_plain(val(a), val(b), bk=bk, beta=beta, n_slices=n_slices,
+                       full=full, alpha=val(alpha), beta_s=val(beta_s),
+                       c=val(c))
     return mp.limbs(out)

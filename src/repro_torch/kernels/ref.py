@@ -18,14 +18,14 @@ __all__ = ["mlgemm_ref", "ddgemm_ref", "tdgemm_ref", "qdgemm_ref",
 
 def mlgemm_ref(a, b):
     """C = A @ B at the operands' tier: exact per-element products,
-    compensated halving-tree accumulation over k."""
-    m, k = a.shape
-    k2, n = b.shape
+    compensated halving-tree accumulation over k (leading batch dims
+    broadcast)."""
+    k, k2 = a.shape[-1], b.shape[-2]
     if k != k2:
         raise ValueError(f"inner dims mismatch: {a.shape} x {b.shape}")
-    abig = mp.map_limbs(lambda l: l[:, :, None], a)  # (m, k, 1)
-    bbig = mp.map_limbs(lambda l: l[None, :, :], b)  # (1, k, n)
-    return mp.sum_(mp.mul(abig, bbig), axis=1)
+    abig = mp.map_limbs(lambda l: l[..., :, :, None], a)  # (..., m, k, 1)
+    bbig = mp.map_limbs(lambda l: l[..., None, :, :], b)  # (..., 1, k, n)
+    return mp.sum_(mp.mul(abig, bbig), axis=-2)
 
 
 # the tier bindings of the reference: one count-generic oracle serves all

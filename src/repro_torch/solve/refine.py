@@ -13,9 +13,17 @@ escalates the factorization one rung up the ladder (default f64 -> dd ->
 td -> qd, ``ladder=`` overrides it).  The residual is one engine call
 with the fused alpha/beta epilogue, so ``plan=`` / ``**plan_overrides``
 (``backend="pallas"`` puts it on kernel #1, ``"ozaki-pallas"`` on kernel
-#2) reach the GEMM as in the reference.  The f64 rung factors with
-``torch.linalg.lu_factor`` / ``cholesky`` where the reference used
-``jax.scipy.linalg``.
+#2) reach the GEMM as in the reference.  Right-hand sides may carry
+leading batch dims (..., n, nrhs): the residual is one batched engine call
+and the corrections solve every column at once, as in the reference.
+
+The f64 rung: on CPU tensors it runs the LAPACK the reference runs (on
+the CPU jaxlib binds SciPy's): ``scipy.linalg.lu_factor`` and
+``cholesky`` (of the symmetrized input, as ``jnp.linalg.cholesky``
+symmetrizes), and BLAS ``dtrsm`` for the solves, which reproduce the
+reference's factors and solutions bit for bit.  On CUDA tensors it runs
+``torch.linalg`` on the card.  A Cholesky that breaks down returns NaN, as
+JAX's does, so the ladder escalates instead of raising.
 """
 
 from __future__ import annotations
@@ -105,12 +113,52 @@ def _as_tier(x, tier: str, device=None):
     return x if t == "f64" else mp.from_float(x, t)
 
 
+def _factor_f64_cpu(a, assume: str):
+    """The reference's CPU LAPACK calls: (lu, 0-based piv) or lower L."""
+    import warnings
+
+    import scipy.linalg as sl
+
+    x = a.numpy()
+    if assume == "pos":
+        try:
+            return torch.from_numpy(sl.cholesky((x + x.T) / 2, lower=True,
+                                                check_finite=False))
+        except np.linalg.LinAlgError:
+            return torch.full_like(a, float("nan"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", sl.LinAlgWarning)
+        lu, piv = sl.lu_factor(x, check_finite=False)
+    return torch.from_numpy(lu), torch.from_numpy(piv.astype(np.int64))
+
+
+def _solve_f64_cpu(fac, assume: str, rhs):
+    """``jsl.lu_solve`` / two ``solve_triangular``s as BLAS dtrsm calls."""
+    from scipy.linalg.blas import dtrsm
+
+    b = rhs.numpy()
+    if assume == "pos":
+        lo = fac.numpy()
+        y = dtrsm(1.0, lo, b, lower=1)
+        return torch.from_numpy(dtrsm(1.0, lo, y, lower=1, trans_a=1))
+    lu, piv = fac[0].numpy(), fac[1].tolist()
+    perm = np.arange(len(piv))
+    for i, p in enumerate(piv):
+        perm[i], perm[p] = perm[p], perm[i]
+    y = dtrsm(1.0, lu, b[perm], lower=1, diag=1)
+    return torch.from_numpy(dtrsm(1.0, lu, y, lower=0))
+
+
 def _factorize(a_target, tier: str, assume: str, block: int):
     """Factor A (held at the target tier) at a ladder rung."""
     a_f = _as_tier(a_target, tier)
     if tier == "f64":
+        if a_f.device.type == "cpu":
+            return _factor_f64_cpu(a_f, assume)
         if assume == "pos":
-            return torch.linalg.cholesky(a_f)
+            low, info = torch.linalg.cholesky_ex(a_f)
+            return low if int(info) == 0 else torch.full_like(
+                a_f, float("nan"))
         return torch.linalg.lu_factor(a_f)
     if assume == "pos":
         return rpotrf(a_f)
@@ -118,8 +166,12 @@ def _factorize(a_target, tier: str, assume: str, block: int):
 
 
 def _fsolve(fac, tier: str, assume: str, rhs):
-    """Solve with a rung's factorization; rhs and result live at that rung."""
+    """Solve with a rung's factorization; rhs (n, ncols) and the result
+    live at that rung (batched systems are flattened to columns by the
+    caller: triangular substitution is column-independent)."""
     if tier == "f64":
+        if rhs.device.type == "cpu":
+            return _solve_f64_cpu(fac, assume, rhs)
         if assume == "pos":
             y = torch.linalg.solve_triangular(fac, rhs, upper=False)
             return torch.linalg.solve_triangular(fac.T, y, upper=True)
@@ -128,6 +180,18 @@ def _fsolve(fac, tier: str, assume: str, rhs):
         return cholesky_solve(fac, rhs)
     lu, piv = fac
     return lu_solve(lu, piv, rhs)
+
+
+def _cols(x, n: int):
+    """(..., n, nrhs) -> (n, batch*nrhs) column view (and its inverse)."""
+    return mp.map_limbs(lambda l: torch.movedim(l, -2, 0).reshape(n, -1), x)
+
+
+def _uncols(x2d, like):
+    shp = tuple(like.shape)
+    return mp.map_limbs(
+        lambda l: torch.movedim(
+            l.reshape(shp[-2:-1] + shp[:-2] + shp[-1:]), 0, -2), x2d)
 
 
 def _col_max(x):
@@ -187,23 +251,22 @@ def _refine(a, b, *, factor_tier, target_tier, assume, factorization,
     b_t = _as_tier(b, target_tier, lead.device)
     if vector_rhs:
         b_t = mp.map_limbs(lambda l: l[:, None], b_t)
-    if len(b_t.shape) != 2:
-        raise NotImplementedError(
-            "batched right-hand sides are not ported to repro_torch yet "
-            "(ROADMAP.md, Open items: 'Batched execution')")
     n = a_t.shape[-1]
     nrhs = b_t.shape[-1]
+    batch_shape = tuple(b_t.shape[:-2])
 
     if plan is not None and plan_overrides:
         raise ValueError("pass either plan= or planner overrides, not both")
     if plan is None:
         plan_overrides.setdefault("platform", lead.device.type)
         plan = make_plan(n, n, nrhs, dtype=lead.dtype,
-                         precision=target_tier, **plan_overrides)
+                         precision=target_tier, batch_shape=batch_shape,
+                         **plan_overrides)
     elif plan.precision != target_tier:
         plan = make_plan(n, n, nrhs, dtype=plan.limb_dtype,
                          precision=target_tier, backend=plan.backend,
-                         platform=plan.platform)
+                         platform=plan.platform,
+                         batch_shape=plan.batch_shape)
 
     if tol is None:
         tol = 2.0 * n * tier_eps(target_tier)
@@ -237,8 +300,9 @@ def _refine(a, b, *, factor_tier, target_tier, assume, factorization,
         return r, float(np.max(cells))
 
     def correct(fac, r, x):
-        d_f = _fsolve(fac, factor_tier, assume, _as_tier(r, factor_tier))
-        return mp.add(x, _as_tier(d_f, target_tier))
+        r_f = _as_tier(_cols(r, n), factor_tier)
+        d_f = _fsolve(fac, factor_tier, assume, r_f)
+        return mp.add(x, _uncols(_as_tier(d_f, target_tier), r))
 
     x = zero_x()
     history: List[float] = []
@@ -335,9 +399,10 @@ def rgesv(a, b, *, factor_tier: Optional[str] = None,
           plan=None, device=None, **plan_overrides):
     """Solve A x = b by factor-cheap / refine-at-target iteration.
 
-    ``a``: (n, n) numpy array, f64 tensor or dd/td/qd value; ``b``: (n,) or
-    (n, nrhs).  Numpy input goes to ``device`` (``None`` -> CUDA, raising
-    without it); tensors and tier values stay on their device.  Semantics
+    ``a``: (n, n) numpy array, f64 tensor or dd/td/qd value; ``b``: (n,),
+    (n, nrhs) or (..., n, nrhs) with leading batch dims.  Numpy input goes
+    to ``device`` (``None`` -> CUDA, raising without it); tensors and tier
+    values stay on their device.  Semantics
     as :func:`repro.solve.rgesv`: factor once at ``factor_tier``, refine
     the residual at ``target_tier`` through one engine call per iteration,
     escalate one rung on stagnation (``stagnation_ratio``), bounded by

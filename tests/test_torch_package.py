@@ -92,10 +92,17 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         ozgemm_kernel_call(*a, *b, bk=8, beta=8, n_slices=14,
                            slice_dtype_name="bfloat16",
                            acc_dtype_name="float32")
-    # the td/qd fold of kernel #2 is still to port
-    td3 = [a[0], a[1], torch.zeros_like(a[0])]
-    with pytest.raises(NotImplementedError, match="dd only"):
-        ozgemm_kernel_call(*td3, *td3, bk=8, beta=21, n_slices=8)
+    # an unregistered limb count, and batch axes that do not agree
+    five = [a[0], a[1], b[0], b[1], torch.zeros_like(a[0])]
+    with pytest.raises(ValueError, match="do not fit"):
+        ozgemm_kernel_call(*five, *five, bk=8, beta=21, n_slices=8)
+    with pytest.raises(ValueError, match="batch"):
+        ozgemm_kernel_call(*[t.expand(2, 8, 8).contiguous() for t in a],
+                           *[t.expand(3, 8, 8).contiguous() for t in b],
+                           bk=8, beta=21, n_slices=6)
+    with pytest.raises(ValueError, match="shape"):
+        mlgemm_kernel_call(*[t.expand(2, 8, 8).contiguous() for t in a],
+                           *[t.expand(3, 8, 8).contiguous() for t in b])
     # operands the kernels cannot read: non-contiguous, f32, bad shapes
     with pytest.raises(ValueError, match="contiguous"):
         mlgemm_kernel_call(a[0].T, a[1].T, *b)
@@ -128,7 +135,10 @@ def test_limbs_round_trip_and_not_ported_options_raise():
     assert all(np.array_equal(a, b) for a, b in zip(limbs_to_numpy(x), ls))
     from repro_torch.gemm import make_plan
 
-    for kw in ({"batch_shape": (3,)}, {"k_stream": 64}, {"check": "finite"},
+    for kw in ({"comm": "psum"}, {"k_stream": 64}, {"check": "finite"},
                {"shard_axis": "rows"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_plan(8, 8, 8, platform="cpu", **kw)
+    # batched execution is ported: batch_shape= plans a batch axis
+    plan = make_plan(8, 8, 8, platform="cpu", batch_shape=(3,))
+    assert (plan.batch, plan.batch_shape) == ("vmap", (3,))

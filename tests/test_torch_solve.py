@@ -123,17 +123,42 @@ def test_rgesv_follows_reference_ladder(case):
     assert info.iterations == jinfo.iterations
     assert info.final_backward_error <= info.tol
     assert max_rel_err(x, _to_torch(jx)) <= 1e-12
-    if case == "converge":
-        # per-iteration backward errors within a factor of 4: the f64 rung
-        # factors with torch.linalg.lu_factor (the LAPACK torch links)
-        # where the reference uses the LAPACK jaxlib links, and XLA
-        # contracts FMAs in the residual, so each iterate carries
-        # different rounding-level errors of the same size.  Not asserted
-        # for the Hilbert cell: at cond ~1e18 > 1/u_f64 the two LAPACKs'
-        # f64 factors differ by O(1) (same pivots), and the iteration-2
-        # errors are 3.9e-17 vs 9.8e-18 (ROADMAP.md, Faults)
-        for got, want in zip(info.backward_errors, jinfo.backward_errors):
-            assert want / 4 <= got <= want * 4
+    # per-iteration backward errors within a factor of 4, on both cells:
+    # the f64 rung runs the reference's own LAPACK on the CPU (its factors
+    # and solves equal the reference's bit for bit, test below), and only
+    # XLA's FMA contraction in the jitted residual moves the dd iterates by
+    # rounding-level amounts
+    for got, want in zip(info.backward_errors, jinfo.backward_errors):
+        assert want / 4 <= got <= want * 4
+
+
+@pytest.mark.parametrize("assume", ["gen", "pos"])
+@pytest.mark.parametrize("case", ["hilbert14", "random33"])
+def test_f64_rung_equals_reference_lapack(case, assume):
+    # the f64 rung's factorization and solve against the reference's own
+    # (jitted, as its refinement runs them), bit for bit
+    import jax
+    from repro.solve import refine as jref
+
+    from repro_torch.solve import refine as tref
+
+    if case == "hilbert14":
+        a = hilbert_f64(14)
+    else:
+        a = _system(33, seed=11)
+    if assume == "pos":
+        a = a @ a.T + np.eye(a.shape[0])
+    r = np.random.default_rng(12).standard_normal((a.shape[0], 3))
+    jfac = jref._factorize(jnp.asarray(a), "f64", assume, 32)
+    jx = jax.jit(lambda f, b: jref._fsolve(f, "f64", assume, b))(
+        jfac, jnp.asarray(r))
+    tfac = tref._factorize(torch.as_tensor(a), "f64", assume, 32)
+    tx = tref._fsolve(tfac, "f64", assume, torch.as_tensor(r))
+    for got, want in zip(tfac if assume == "gen" else [tfac],
+                         jfac if assume == "gen" else [jfac]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(tx.numpy().view(np.int64),
+                          np.asarray(jx).view(np.int64))
 
 
 @pytest.mark.parametrize("backend", ["pallas", "ozaki-pallas"])
@@ -195,3 +220,22 @@ def test_rtrsm_right_and_blas_helpers():
     assert max_rel_err(s, matmul(g, transpose(g), backend="ref")) == 0.0
     assert float(rlange("i", g)) == float(np.abs(tdd.to_float(g).numpy())
                                           .sum(1).max())
+
+
+def test_rposv_f64_cholesky_breakdown_escalates_like_reference():
+    # Hilbert n=14 is SPD, but its f64 Cholesky breaks down (14th leading
+    # minor): the reference's factor is NaN and the ladder climbs to dd.
+    # The port returns NaN too (it used to raise torch's LinAlgError)
+    n = 14
+    a = hilbert_f64(n)
+    b = a @ np.ones((n, 1))
+    kw = dict(factor_tier="f64", target_tier="dd", max_iters=4)
+    x, info = rposv(a, b, backend="xla", device="cpu", **kw)
+    jx, jinfo = jrposv(a, b, backend="xla", use_cache=False, **kw)
+    assert info.factor_tiers == jinfo.factor_tiers == ["f64", "f64", "dd",
+                                                       "dd"]
+    assert info.factorizations == jinfo.factorizations
+    assert info.backward_errors[:2] == jinfo.backward_errors[:2]
+    assert info.backward_errors[1] == float("inf")
+    assert [(e["iteration"], e["from"], e["to"]) for e in info.escalations] \
+        == [(e["iteration"], e["from"], e["to"]) for e in jinfo.escalations]
