@@ -69,9 +69,12 @@ U_DD = 2.0 ** -106
 ULP = {"dd": 2.0 ** -104, "td": 2.0 ** -155, "qd": 2.0 ** -205}
 NLIMBS = {"dd": 2, "td": 3, "qd": 4}
 
-# H100 SXM peaks (NVIDIA's data sheet) for the bounds: f64 outside the
-# tensor cores, and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA's data sheet) for the bounds: 34 TFLOP/s f64
+# outside the tensor cores counts an FMA as two flops, so the card runs
+# 17e12 f64 instructions per second, a DADD, DMUL or DFMA being one each;
+# the bounds count instructions against that rate.  And HBM3 bandwidth.
 F64_PEAK = 34e12
+F64_INSTR_PER_S = F64_PEAK / 2
 HBM_BYTES_PER_S = 3.35e12
 # f64 add/sub/mul operations per dd FMA in csrc/mlgemm.cu's inner loop
 MLGEMM_OPS_PER_FMA = 51
@@ -244,10 +247,6 @@ def main() -> int:
             f"(max abs diff {err:.3e})")
         check(same, f"{key} {label} differs from its plain version")
 
-    def plain(fn, *args, **kw):
-        with mp.plain_ops():
-            return fn(*args, **kw)
-
     def oz_call(a, b, p, epi, alpha=None, beta=None, c=None):
         m, k = a.shape[-2:]
         n = b.shape[-1]
@@ -266,8 +265,8 @@ def main() -> int:
         got = ozgemm.ozgemm_kernel_call(
             *ops, bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
             epilogue=epi)
-        want = plain(ozgemm.ozgemm_plain, a, b, bk=plan.bk,
-                     beta=plan.slice_beta, n_slices=plan.n_slices, **kw)
+        want = ozgemm.ozgemm_plain(a, b, bk=plan.bk, beta=plan.slice_beta,
+                                   n_slices=plan.n_slices, **kw)
         return got, want, plan
 
     # kernel #1 at the shapes the main paths give it: dd as in the first
@@ -282,7 +281,7 @@ def main() -> int:
             ("2048x2048x4", rand_dd(2048, 2048), rand_dd(2048, 4))]:
         hold("mlgemm_dd", label,
              mlgemm.mlgemm_kernel_call(*mp.limbs(a), *mp.limbs(b)),
-             plain(mlgemm.mlgemm_plain, a, b))
+             mlgemm.mlgemm_plain(a, b))
     for p in ("td", "qd"):
         for label, a, b in [
                 ("256^3", rand_tier((256, 256), p), rand_tier((256, 256), p)),
@@ -294,7 +293,7 @@ def main() -> int:
                  rand_tier((104, 1), p))]:
             hold(f"mlgemm_{p}", label,
                  mlgemm.mlgemm_kernel_call(*mp.limbs(a), *mp.limbs(b)),
-                 plain(mlgemm.mlgemm_plain, a, b))
+                 mlgemm.mlgemm_plain(a, b))
     # kernel #2: dd as in the first slice, td/qd square and ragged, each
     # with the three epilogues, and one batched call per tier
     for p in ("dd", "td", "qd"):
@@ -564,7 +563,7 @@ def main() -> int:
         return start.elapsed_time(stop) / reps
 
     def bound(ops, nbytes):
-        t_ops, t_bytes = ops / F64_PEAK, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = ops / F64_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, \
             "operations" if t_ops >= t_bytes else "bytes"
 
@@ -608,15 +607,15 @@ def main() -> int:
     ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
         *mp.limbs(A), *mp.limbs(B)), 3)
     oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(*oz_ops, **oz_kw), 3)
-    want, t = sync_time(lambda: plain(mlgemm.mlgemm_plain, A, B))
+    want, t = sync_time(lambda: mlgemm.mlgemm_plain(A, B))
     ml_plain_ms = t * 1e3
     same, err = compare("mlgemm_dd", mlgemm.mlgemm_kernel_call(
         *mp.limbs(A), *mp.limbs(B)), want)
     log(f"phase 7: mlgemm_dd {n}^3 kernel == plain: {same} "
         f"(max abs diff {err:.3e})")
     check(same, f"mlgemm_dd {n}^3 differs from its plain version")
-    want, t = sync_time(lambda: plain(
-        ozgemm.ozgemm_plain, A, B, bk=plan.bk, beta=plan.slice_beta,
+    want, t = sync_time(lambda: ozgemm.ozgemm_plain(
+        A, B, bk=plan.bk, beta=plan.slice_beta,
         n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=C))
     oz_plain_ms = t * 1e3
     same, err = compare("ozgemm_dd", ozgemm.ozgemm_kernel_call(
@@ -632,7 +631,7 @@ def main() -> int:
            bound(mnk * MLGEMM_OPS_PER_FMA, 8 * 2 * 3 * n * n), [n, n, n],
            f64_ms)
     record("ozgemm_dd", oz_src, oz_rep, oz_ms, oz_plain_ms,
-           bound(2 * mnk * pairs(s)
+           bound(mnk * pairs(s)
                  + 2 * n * n * s * OZGEMM_OPS_PER_SLICE
                  + n * n * (n // plan.bk) * s * ADD_FLOAT_OPS
                  + n * n * (2 * DD_MUL_OPS + DD_ADD_OPS),
@@ -660,10 +659,10 @@ def main() -> int:
         f64_ms = event_ms(lambda: torch.matmul(mp.limbs(A)[0],
                                                mp.limbs(B)[0]), 5)
         a_s, b_s, c_s = (rand_tier((n_plain, n_plain), p) for _ in range(3))
-        _, t = sync_time(lambda: plain(mlgemm.mlgemm_plain, a_s, b_s))
+        _, t = sync_time(lambda: mlgemm.mlgemm_plain(a_s, b_s))
         ml_plain_ms = t * 1e3
-        _, t = sync_time(lambda: plain(
-            ozgemm.ozgemm_plain, a_s, b_s, bk=plan.bk, beta=plan.slice_beta,
+        _, t = sync_time(lambda: ozgemm.ozgemm_plain(
+            a_s, b_s, bk=plan.bk, beta=plan.slice_beta,
             n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=c_s))
         oz_plain_ms = t * 1e3
         mnk = n ** 3
@@ -673,7 +672,7 @@ def main() -> int:
                bound(mnk * fma_ops(k), 8 * k * 3 * n * n), [n, n, n],
                f64_ms, note)
         record(f"ozgemm_{p}", oz_src, oz_rep, oz_ms, oz_plain_ms,
-               bound(2 * mnk * pairs(s)
+               bound(mnk * pairs(s)
                      + 2 * n * n * s * (3 + add_ops(k))
                      + n * n * (n // plan.bk) * s * renorm_ops(k + 1, k)
                      + n * n * (2 * mul_ops(k) + add_ops(k)),

@@ -17,13 +17,13 @@ explicit ``promote``.
 On CUDA tensors the elementwise ops (``add``, ``sub``, ``mul``, ``fma``,
 ``div``, ``sqrt``, ``mul_float``) and ``sum_`` launch one fused kernel
 each (``kernels/mpops.py``, ``csrc/mpops.cu``), bit for bit the tier
-modules' arithmetic; on CPU tensors, and inside
-``plain_ops()``, they run the tier modules' PyTorch code.
+modules' arithmetic; on CPU tensors they run the tier modules' PyTorch
+code.  ``tier_module(x)`` hands out that code directly, for the kernels'
+plain versions, which never launch a kernel on any device.
 """
 
 from __future__ import annotations
 
-import contextlib
 import importlib
 from typing import Sequence
 
@@ -38,7 +38,7 @@ __all__ = [
     "where", "sum_", "dot", "broadcast_to", "eps", "max_abs", "is_zero",
     "renorm_list", "add_limbs", "neg_limbs", "mul_limbs", "mul_float_limbs",
     "mul_pow2_limbs", "fma_limbs", "div_limbs", "sqrt_limbs", "sum_limbs",
-    "to_dd_limbs", "eps_for", "plain_ops",
+    "to_dd_limbs", "eps_for", "tier_module",
 ]
 
 # precision name -> limb count, in ladder order (cheapest rung first).
@@ -90,23 +90,15 @@ def _mod(x):
     return _tier_mod(precision_of(x))
 
 
-_PLAIN = [0]  # depth of nested plain_ops() blocks
-
-
-@contextlib.contextmanager
-def plain_ops():
-    """Run the tier modules' PyTorch code even on CUDA tensors (the plain
-    versions that the kernels are held against)."""
-    _PLAIN[0] += 1
-    try:
-        yield
-    finally:
-        _PLAIN[0] -= 1
+def tier_module(x):
+    """The tier module of ``x`` (``dd``, ``td`` or ``qd``): its arithmetic
+    as PyTorch ops on any device, never a kernel launch."""
+    return _mod(x)
 
 
 def _kernel(x) -> bool:
-    """True when ``x`` lives on the card and kernels are not switched off."""
-    return not _PLAIN[0] and x.limbs()[0].is_cuda
+    """True when ``x`` lives on the card (its ops launch the kernels)."""
+    return x.limbs()[0].is_cuda
 
 
 def _mpops(op, *args):

@@ -109,7 +109,7 @@ def _pow2_near(mu):
     return mu / m
 
 
-def _extract_slices(x, beta: int, n_slices: int, axis: int):
+def _extract_slices(x, beta: int, n_slices: int, axis: int, ops=mp):
     """Error-free slices along rows (axis=-1, for A) or columns (axis=-2).
 
     Anchor sigma_0 = 2^(exponent(mu) + p - beta) from the row/column max mu
@@ -117,7 +117,9 @@ def _extract_slices(x, beta: int, n_slices: int, axis: int):
     every row sits on one fixed grid, which the diagonal-grouped exactness
     proof needs.  ``(hi + sigma) - sigma`` is never reassociated (eager
     torch runs each op as written).  The residual subtraction runs in the
-    value's own tier, so lower limbs surface in later slices.
+    value's own tier, so lower limbs surface in later slices: through
+    ``ops``, ``mp`` (a kernel launch on the card) or the value's tier module
+    (``mp.tier_module``, the plain version).
     """
     lead = mp.limbs(x)[0]
     pbits = 53 if lead.dtype == torch.float64 else 24
@@ -131,7 +133,7 @@ def _extract_slices(x, beta: int, n_slices: int, axis: int):
         hi = mp.limbs(r)[0]
         s = torch.where(nonzero, (hi + sigma) - sigma, torch.zeros_like(hi))
         slices.append(s)
-        r = mp.sub(r, mp.from_float(s, prec))
+        r = ops.sub(r, mp.from_float(s, prec))
         sigma = sigma * (2.0 ** -beta)
     return slices
 

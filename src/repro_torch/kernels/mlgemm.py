@@ -37,7 +37,8 @@ MAX_BATCH = 65535
 
 def mlgemm_plain(a, b):
     """C = A @ B at the operands' tier: the K-ordered FMA fold, as tensor
-    ops (the plain PyTorch version of the kernel).  Leading batch dims
+    ops (the plain PyTorch version of the kernel: the tier module's
+    arithmetic, no kernel launch on any device).  Leading batch dims
     broadcast."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
@@ -45,9 +46,10 @@ def mlgemm_plain(a, b):
     lead = mp.limbs(a)[0]
     acc = mp.zeros(batch + (m, n), mp.precision_of(a), dtype=lead.dtype,
                    device=lead.device)
+    fma = mp.tier_module(a).fma
     for kk in range(k):
-        acc = mp.fma(acc, mp.map_limbs(lambda l: l[..., kk:kk + 1], a),
-                     mp.map_limbs(lambda l: l[..., kk:kk + 1, :], b))
+        acc = fma(acc, mp.map_limbs(lambda l: l[..., kk:kk + 1], a),
+                  mp.map_limbs(lambda l: l[..., kk:kk + 1, :], b))
     return acc
 
 

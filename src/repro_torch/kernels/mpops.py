@@ -43,8 +43,7 @@ _FNS: dict = {}
 
 def mpops_plain(op, *args):
     """The tier module's own PyTorch version of ``op`` (no dispatch)."""
-    mod = mp._tier_mod(mp.precision_of(args[0]))
-    return getattr(mod, op)(*args)
+    return getattr(mp.tier_module(args[0]), op)(*args)
 
 
 def _fn(nl):
@@ -127,8 +126,7 @@ def mpops_call(op, *args):
 
 def sum_plain(a, axis=None, keepdims=False):
     """The tier module's own PyTorch ``sum_`` (no dispatch)."""
-    mod = mp._tier_mod(mp.precision_of(a))
-    return mod.sum_(a, axis=axis, keepdims=keepdims)
+    return mp.tier_module(a).sum_(a, axis=axis, keepdims=keepdims)
 
 
 def sum_(a, axis=None, keepdims=False):

@@ -47,29 +47,33 @@ MAX_BATCH = 65535
 
 def _slab_update(acc, a, b, *, beta, n_slices, full):
     """One K slab: extract slices, run the diagonal dots, fold into acc."""
-    sa = _extract_slices(a, beta, n_slices, axis=-1)
-    sb = _extract_slices(b, beta, n_slices, axis=-2)
+    tier = mp.tier_module(a)
+    sa = _extract_slices(a, beta, n_slices, axis=-1, ops=tier)
+    sb = _extract_slices(b, beta, n_slices, axis=-2, ops=tier)
     for _, dsum in diagonal_sums(sa, sb, n_slices, full, torch.float64):
         acc = _fold_diagonal_sum(acc, dsum)
     return acc
 
 
-def apply_epilogue(res, alpha=None, beta=None, c=None):
-    """alpha * res [+ beta * c], beta == 0 selecting zero (C not read)."""
+def apply_epilogue(res, alpha=None, beta=None, c=None, ops=mp):
+    """alpha * res [+ beta * c], beta == 0 selecting zero (C not read).
+    ``ops``: ``mp`` (kernel launches on the card) or a tier module (the
+    plain version)."""
     if alpha is not None:
-        res = mp.mul(mp.broadcast_to(alpha, res.shape), res)
+        res = ops.mul(mp.broadcast_to(alpha, res.shape), res)
     if c is not None:
-        bc = mp.mul(mp.broadcast_to(beta, c.shape), c)
-        bc = mp.where(torch.broadcast_to(mp.is_zero(beta), bc.shape),
-                      mp.map_limbs(torch.zeros_like, bc), bc)
-        res = mp.add(res, bc)
+        bc = ops.mul(mp.broadcast_to(beta, c.shape), c)
+        bc = ops.where(torch.broadcast_to(mp.is_zero(beta), bc.shape),
+                       mp.map_limbs(torch.zeros_like, bc), bc)
+        res = ops.add(res, bc)
     return res
 
 
 def ozgemm_plain(a, b, *, bk, beta, n_slices, full=False, alpha=None,
                  beta_s=None, c=None):
     """The kernel's algorithm as tensor ops (tier values in, tier value
-    out; leading batch dims broadcast)."""
+    out; leading batch dims broadcast): the tier module's arithmetic, no
+    kernel launch on any device."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
     batch = np.broadcast_shapes(a.shape[:-2], b.shape[:-2])
@@ -79,7 +83,7 @@ def ozgemm_plain(a, b, *, bk, beta, n_slices, full=False, alpha=None,
     for k0 in range(0, k, bk):
         acc = _slab_update(acc, a[..., k0:k0 + bk], b[..., k0:k0 + bk, :],
                            beta=beta, n_slices=n_slices, full=full)
-    return apply_epilogue(acc, alpha, beta_s, c)
+    return apply_epilogue(acc, alpha, beta_s, c, ops=mp.tier_module(a))
 
 
 def _split_operands(operands, epilogue):

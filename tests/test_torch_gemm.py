@@ -23,6 +23,7 @@ Tolerances:
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ import torch
 
 from repro import gemm as jgemm
 from repro.core import mp as jmp
+from repro.kernels import ozgemm as jozgemm
 from repro.kernels import ref as jref
 from repro_torch import gemm as tgemm
 from repro_torch.core import dd as tdd
@@ -39,7 +41,7 @@ from repro_torch.core.blas import rgemm
 from repro_torch.gemm.engine import _apply_epilogue
 from repro_torch.interop import limbs_from_numpy, limbs_to_numpy, \
     plan_from_dict
-from repro_torch.kernels.ozgemm import ozgemm_kernel_call
+from repro_torch.kernels.ozgemm import ozgemm_kernel_call, ozgemm_plain
 
 pytestmark = pytest.mark.torch_port
 
@@ -258,3 +260,82 @@ def test_wider_tiers_match_reference_oracle(backend, precision):
     assert max_rel_err(got, want) <= 16 * k * TIER_ULP[precision]
     if backend == "ref":
         assert _bitwise(got, want)
+
+
+def _tier_limbs(shape, precision, seed):
+    """Normalized tier limbs with signal in every limb (numpy)."""
+    rng = np.random.default_rng(seed)
+    x = tmp.from_float(torch.as_tensor(rng.standard_normal(shape)),
+                       precision)
+    for i in range(1, tmp.PRECISIONS[precision]):
+        x = tmp.add(x, tmp.from_float(torch.as_tensor(
+            rng.standard_normal(shape) * 2.0 ** (-53 * i)), precision))
+    return limbs_to_numpy(x)
+
+
+def _tier_scalar(num, den, precision):
+    """num / den as (1, 1) tier limbs (numpy)."""
+    def one(v):
+        return tmp.from_float(torch.full((1, 1), float(v),
+                                         dtype=torch.float64), precision)
+    return limbs_to_numpy(tmp.div(one(num), one(den)))
+
+
+def _reference_ozgemm(a, b, alpha, beta_s, c, *, bk, beta, n_slices):
+    """The reference kernel's body called eagerly: its ``_slab_update`` per
+    K slab from a zero accumulator, then the drain's epilogue as written
+    in ``repro/kernels/ozgemm.py``'s ``_ozgemm_kernel``."""
+    m, k = a.shape
+    n = b.shape[1]
+    acc = jmp.zeros((m, n), jmp.precision_of(a))
+    for k0 in range(0, k, bk):
+        acc = jozgemm._slab_update(
+            acc, jmp.map_limbs(lambda l: l[:, k0:k0 + bk], a),
+            jmp.map_limbs(lambda l: l[k0:k0 + bk, :], b), beta=beta,
+            n_slices=n_slices, slice_dtype="float64", acc_dtype="float64",
+            full=False)
+    res = acc
+    if alpha is not None:
+        res = jmp.mul(jmp.broadcast_to(alpha, res.shape), res)
+    if c is not None:
+        bc = jmp.mul(jmp.broadcast_to(beta_s, c.shape), c)
+        bc = jmp.where(jnp.broadcast_to(jmp.is_zero(beta_s), bc.shape),
+                       jmp.map_limbs(jnp.zeros_like, bc), bc)
+        res = jmp.add(res, bc)
+    return res
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("m,k,n", SHAPES[1:])
+@pytest.mark.parametrize("precision", ["td", "qd"])
+def test_ozgemm_plain_wider_tiers_match_reference_slab_update(
+        precision, m, k, n, epilogue):
+    # kernel #2's plain version at td/qd (the version the CUDA kernel is
+    # held to on the card) against the reference's slab update and drain,
+    # eagerly, under the reference's own plan: bit for bit, the order of
+    # every rounding being the same
+    jplan = jgemm.make_plan(m, k, n, precision=precision,
+                            backend="ozaki-pallas", use_cache=False)
+    tplan = tgemm.make_plan(m, k, n, precision=precision,
+                            backend="ozaki-pallas", platform="cpu")
+    assert (tplan.bk, tplan.slice_beta, tplan.n_slices) == \
+        (jplan.bk, jplan.slice_beta, jplan.n_slices)
+    ops = {"a": _tier_limbs((m, k), precision, 31),
+           "b": _tier_limbs((k, n), precision, 32)}
+    if epilogue != "none":
+        ops["alpha"] = _tier_scalar(1, 3, precision)
+    if epilogue == "full":
+        ops["beta_s"] = _tier_scalar(-1, 7, precision)
+        ops["c"] = _tier_limbs((m, n), precision, 33)
+    t = {key: limbs_from_numpy(v, precision, "cpu")
+         for key, v in ops.items()}
+    j = {key: jmp.from_limbs([jnp.asarray(l) for l in v])
+         for key, v in ops.items()}
+    kw = dict(bk=jplan.bk, beta=jplan.slice_beta, n_slices=jplan.n_slices)
+    with jax.disable_jit():
+        want = _reference_ozgemm(j["a"], j["b"], j.get("alpha"),
+                                 j.get("beta_s"), j.get("c"), **kw)
+    got = ozgemm_plain(t["a"], t["b"], alpha=t.get("alpha"),
+                       beta_s=t.get("beta_s"), c=t.get("c"), **kw)
+    want = limbs_from_numpy(limbs_to_numpy_jax(want), precision, "cpu")
+    assert _bitwise(got, want)

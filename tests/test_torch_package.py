@@ -142,3 +142,38 @@ def test_limbs_round_trip_and_not_ported_options_raise():
     # batched execution is ported: batch_shape= plans a batch axis
     plan = make_plan(8, 8, 8, platform="cpu", batch_shape=(3,))
     assert (plan.batch, plan.batch_shape) == ("vmap", (3,))
+
+
+@pytest.mark.parametrize("precision", ["dd", "td", "qd"])
+def test_plain_versions_never_dispatch_to_a_kernel(precision, monkeypatch):
+    # the kernels' plain versions run the tier module's arithmetic, so on
+    # the card they are plain by construction: with mp's dispatch made to
+    # see every tensor as a card tensor whose kernel raises, they still
+    # run, and give what the dispatching ops give on the CPU
+    from repro_torch.kernels import mlgemm, mpops, ozgemm
+
+    rng = np.random.default_rng(5)
+
+    def val(shape):
+        return mp.from_float(torch.as_tensor(rng.standard_normal(shape)),
+                             precision)
+
+    a, b, c = val((5, 7)), val((7, 6)), val((5, 6))
+    alpha, beta_s = val((1, 1)), val((1, 1))
+    oz = dict(bk=4, beta=20, n_slices=6, alpha=alpha, beta_s=beta_s, c=c)
+    want = [mlgemm.mlgemm_plain(a, b), ozgemm.ozgemm_plain(a, b, **oz),
+            mpops.mpops_plain("div", a, a), mpops.sum_plain(a, axis=0)]
+
+    def no_kernel(*args, **kw):
+        raise AssertionError("a plain version reached a kernel")
+
+    monkeypatch.setattr(mp, "_kernel", lambda x: True)
+    monkeypatch.setattr(mp, "_mpops", no_kernel)
+    monkeypatch.setattr(mpops, "sum_", no_kernel)
+    got = [mlgemm.mlgemm_plain(a, b), ozgemm.ozgemm_plain(a, b, **oz),
+           mpops.mpops_plain("div", a, a), mpops.sum_plain(a, axis=0)]
+    for g, w in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(mp.limbs(g),
+                                                     mp.limbs(w)))
+    with pytest.raises(AssertionError, match="reached a kernel"):
+        mp.mul(a, a)
