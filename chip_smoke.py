@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases, each of which ends the run with a non-zero exit if it fails (they
-run in the order 1-6, 8, 9, 7):
+run in the order 1-6, 8, 9, 10, 7, 11):
 
   1. the card (name and power limit from nvidia-smi) and the build of every
-     hand-written kernel from csrc/ (nvcc, one process per source and limb
-     count, all at once), with registers and spills per kernel;
+     hand-written kernel from csrc/ (nvcc, one process per source, limb
+     count and narrow variant, all at once), with registers and spills per
+     kernel;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
      kernel #1 (csrc/mlgemm.cu) at dd at 512^3, a ragged 509x263x131, the
      Hilbert gate's 32^3, an LU trailing update 1984x64x1984 and a residual
@@ -16,9 +17,17 @@ run in the order 1-6, 8, 9, 7):
      (104 x 50x50x50, A shared) and an rposv residual 104x104x1; kernel #2
      (csrc/ozgemm.cu) at dd at 512^3, 509x263x131 and the Hilbert 32^3, at
      td and qd at 256^3 and 509x263x131, each with epilogues none, alpha and
-     full, plus one batched call per tier; batched calls equal the looped
-     ones for both kernels at dd, td and qd; the elementwise kernels
-     (csrc/mpops.cu) at every tier on the shapes of the SDP loop;
+     full, plus a B-shared batch 6 x 96x80x72 per tier with the three
+     epilogues; batched calls equal the looped ones for both kernels at dd,
+     td and qd; kernel #2's narrow variants (csrc/ozgemm_narrow.cu:
+     bf16/f32, f32/f32, bf16/f64 and f32/f64 slices/accumulator) at dd, td
+     and qd on 509x263x131, the Hilbert 32^3 and a residual 2048x2048x4
+     with the three epilogues, on the SDP stack (99 x 50x50x50, A shared)
+     and the B-shared batch with the three epilogues, batched 5 x 70x40x66
+     against looped, and an adversarial headroom case (all
+     digits at their largest, bk = 16, dd) whose f32 diagonal sums must
+     equal the same dots in f64; the elementwise kernels (csrc/mpops.cu)
+     at every tier on the shapes of the SDP loop;
   3. the first main path, with every launch counter set to 0 first: dd
      Rgemm C = alpha*A@B + beta*C at n = 4096 through rgemm on backend
      ozaki-pallas (kernel #2, fused drain) and on pallas (kernel #1), the
@@ -47,11 +56,38 @@ run in the order 1-6, 8, 9, 7):
      degenerate binary128+ receipt and the binary192 receipt of
      tests/test_sdp.py; then the launch counts of phases 8-9 (every
      td/qd instantiation must have run);
+  10. the narrow path, counters set to 0 again: kernel #2 with bf16
+     slices and f32 accumulation (csrc/ozgemm_narrow.cu, the pair dots on
+     the tensor cores), through the entry points with the planner
+     overrides slice_dtype="bfloat16", acc_dtype="float32": dd Rgemm at
+     n = 4096 and td/qd at n = 2048 held to the pallas product (2^-90 at
+     dd, the bound the reference's tests set for narrow plans; 16*k*ulp at
+     td/qd), the tiny-rows operands of tests/test_ozgemm_kernel.py at dd,
+     the Hilbert gates at every tier, the other narrow pairs (f32/f32,
+     bf16/f64, f32/f64) through Rgemm at every tier, rgesv at n = 2048
+     (f64 factor, dd target; its residual through the fused drain), and
+     solve_sdp on theta1's shape at binary128 (the batched Schur stacks on
+     the narrow kernel) held to phase 9's gates, the gap to the
+     reference's own value on this kernel, its history bit for bit
+     against the reference's run eagerly (THETA1_NARROW_REF); then
+     the launch counts of phase 10 (every narrow variant at every tier
+     must have run);
   7. each kernel's time beside its bound: the dd kernels at 4096^3 (their
      plain versions there too, held bit for bit again), the td/qd kernels
-     at 2048^3 (plain versions at 256^3), the elementwise kernels on the
-     SDP's pairwise product, and (as context only: no PyTorch call computes
-     a multi-limb GEMM) an f64 torch.matmul at the same shapes.
+     at 2048^3 (plain versions at 256^3), the narrow variants at the same
+     shapes with the epilogue full (plain versions at 512^3 and 256^3, held
+     bit for bit again), the elementwise kernels on the SDP's pairwise
+     product, and (as context only: no PyTorch call computes a multi-limb
+     GEMM) an f64 torch.matmul, or a bf16 one beside the narrow variants,
+     at the same shapes;
+  11. the autotuner on the card, once: autotune(2048, 2048, 2048,
+     backend="ozaki-pallas") into the run's own plan cache, after which
+     make_plan adopts the tuned entry and a narrow-override plan in the
+     same bucket re-solves its slice count.
+
+The port's plan cache points at a fresh file under build/ for the whole
+run (REPRO_TORCH_GEMM_CACHE), so no tuned entry on the machine can change
+the bits that the gates read.
 
 The last two lines are a JSON object {"kernels": [...]} and
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository's
@@ -59,10 +95,13 @@ src/repro_torch beside it, the script exits non-zero and prints neither.
 """
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from fractions import Fraction
 from pathlib import Path
 
 U_DD = 2.0 ** -106
@@ -83,12 +122,32 @@ MLGEMM_OPS_PER_FMA = 51
 OZGEMM_OPS_PER_SLICE = 23
 ADD_FLOAT_OPS = 10      # dd.add_float, one fold per output per diagonal
 DD_MUL_OPS, DD_ADD_OPS = 31, 20
+# the dense bf16 tensor-core rate of the H100 SXM (data sheet), for the
+# narrow variants' pair dots; FFMA issues at half the 67 TFLOP/s f32 rate
+BF16_TC_PEAK = 989e12
+F32_INSTR_PER_S = 67e12 / 2
+# per slice element in csrc/ozgemm_narrow.cu's normalization (two DMULs)
+# and per output per diagonal in its rescale (three DMULs)
+NARROW_NORM_OPS, NARROW_RESCALE_OPS = 2, 3
+# the narrow plans of phase 10: the TPU kernel's own configuration
+NARROW = {"slice_dtype": "bfloat16", "acc_dtype": "float32"}
+NARROW_PAIRS = (("bfloat16", "float32"), ("float32", "float32"),
+                ("bfloat16", "float64"), ("float32", "float64"))
+# the bound tests/test_ozgemm_kernel.py sets for narrow plans at dd
+NARROW_DD_BOUND = 2.0 ** -90
 # theta1's shape floors the primal infeasibility above the 1e-20 of
 # tests/test_sdp.py's theta8 receipt: the reference itself, binary128
 # solve_sdp on theta_problem(50, 0.085, seed=0) (CPU, backend xla, 80
 # iterations, tools/sdp_reference.py), ends at pfeas 2.5688e-20 with gap
 # 7.51e-22 and dfeas 2.77e-32, so the port is held to that value there
 THETA1_REF_PFEAS = 2.5688e-20
+# and on the narrow kernel the best of theta1's noisy iterates floors the
+# gap above 1e-20.  The reference's narrow plan run eagerly, rounding op by
+# op as the port does (tools/sdp_reference.py theta 50 0.085 0 --backend
+# ozaki-pallas --slice-dtype bfloat16 --acc-dtype float32 --eager; its last
+# line is this file), gives the history phase 10 holds the card's to, bit
+# for bit, and the gap it holds the card's to: the reference's own best
+THETA1_NARROW_REF = Path("tools") / "theta1_bf16_eager_reference.json"
 
 
 # f64 operations of the k-limb recipes in csrc/ml_device.cuh (two_sum 6,
@@ -121,6 +180,28 @@ def log(msg):
     print(msg, flush=True)
 
 
+def headroom_operand(shape, beta, seed, device):
+    """All-positive dd values in [1, 2) whose every slice digit (of the
+    anchor ladder at slab depth 16) is 2^(beta-1) - 1 or one less: the
+    largest all-positive digits round-to-nearest slicing leaves."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dd
+
+    rng = np.random.default_rng(seed)
+    top = 2 ** (beta - 1) - 1
+    n_digits = 1 + (106 - (beta - 1)) // beta  # what two f64 limbs hold
+    hi, lo = np.empty(shape), np.empty(shape)
+    for idx in np.ndindex(*shape):
+        v = sum(Fraction(top - int(rng.integers(0, 2)) * (i > 0),
+                         2 ** (i * beta)) for i in range(n_digits))
+        v *= Fraction(2 ** 2, 2 ** beta)
+        hi[idx] = float(v)
+        lo[idx] = float(v - Fraction(hi[idx]))
+    return dd.from_hi_lo(torch.as_tensor(hi, device=device),
+                         torch.as_tensor(lo, device=device))
+
+
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
@@ -146,6 +227,7 @@ def ptxas_summary(text):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -158,6 +240,12 @@ def main() -> int:
               f"a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    # the port's plan cache: a fresh file for this run only, so that no
+    # tuned entry on the machine moves the bits the gates read
+    plans = src.parent / "build" / "chip_smoke" / "plans.json"
+    shutil.rmtree(plans.parent, ignore_errors=True)
+    plans.parent.mkdir(parents=True)
+    os.environ["REPRO_TORCH_GEMM_CACHE"] = str(plans)
 
     from repro_torch.core import dd, mp
     from repro_torch.core.accuracy import (GATES, hilbert_relative_error,
@@ -165,7 +253,9 @@ def main() -> int:
     from repro_torch.core.blas import rgemm, rlange
     from repro_torch.core.linalg import apply_pivots, lu_solve, rgetrf
     from repro_torch.core.sdp import random_sdp, solve_sdp, theta_problem
-    from repro_torch.gemm import make_plan, matmul
+    from repro_torch.core.ozaki import (_extract_slices, _normalize_slices,
+                                        diagonal_sums, slice_params)
+    from repro_torch.gemm import autotune, default_cache, make_plan, matmul
     from repro_torch.kernels import _build, mlgemm, mpops, ozgemm
     from repro_torch.solve import rgesv
 
@@ -227,6 +317,22 @@ def main() -> int:
         for kern, regs, st, ld in ptxas_summary(text):
             log(f"phase 1: {name} k={nl} {kern}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
+    # kernel #2's shared memory as the sources count it, against the
+    # wrapper's count (which refuses what a block cannot hold)
+    for nl in _build.LIMBS:
+        for bk, ns in ((8, 3), (16, 5), (16, 15), (32, 24), (48, 7)):
+            for (sdt, adt), v in ozgemm.SLICE_PAIRS.items():
+                if v is None:
+                    got = _build.load("ozgemm", nl).ozgemm_smem_bytes(bk, ns)
+                else:
+                    got = _build.load("ozgemm_narrow", nl, v) \
+                        .ozgemm_narrow_smem_bytes(bk, ns, v)
+                check(got == ozgemm.smem_bytes(bk, ns, sdt, adt),
+                      f"shared memory count {sdt}/{adt} bk={bk} "
+                      f"n_slices={ns}: kernel {got} B, wrapper "
+                      f"{ozgemm.smem_bytes(bk, ns, sdt, adt)} B")
+    log("phase 1: kernel #2's shared-memory counts equal the wrapper's for "
+        "every slice pair and limb count")
 
     # ---- 2. kernels against their plain versions, bit for bit ----------
     t2 = time.perf_counter()
@@ -247,11 +353,9 @@ def main() -> int:
             f"(max abs diff {err:.3e})")
         check(same, f"{key} {label} differs from its plain version")
 
-    def oz_call(a, b, p, epi, alpha=None, beta=None, c=None):
-        m, k = a.shape[-2:]
-        n = b.shape[-1]
-        plan = make_plan(m, k, n, precision=p, backend="ozaki-pallas",
-                         platform="cuda")
+    def oz_operands(a, b, epi, alpha=None, beta=None, c=None):
+        """The kernel's operand list and the plain version's epilogue
+        keywords for one epilogue."""
         ops = [*mp.limbs(a), *mp.limbs(b)]
         kw = {}
         if epi != "none":
@@ -262,12 +366,26 @@ def main() -> int:
                     *mp.limbs(c)]
             kw.update(beta_s=mp.map_limbs(lambda l: l.reshape(1, 1), beta),
                       c=c)
-        got = ozgemm.ozgemm_kernel_call(
-            *ops, bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
-            epilogue=epi)
-        want = ozgemm.ozgemm_plain(a, b, bk=plan.bk, beta=plan.slice_beta,
-                                   n_slices=plan.n_slices, **kw)
+        return ops, kw
+
+    def oz_plan_kw(m, k, n, p, sdt="float64", adt="float64"):
+        plan = make_plan(m, k, n, precision=p, backend="ozaki-pallas",
+                         platform="cuda", slice_dtype=sdt, acc_dtype=adt)
+        return plan, dict(bk=plan.bk, beta=plan.slice_beta,
+                          n_slices=plan.n_slices, slice_dtype_name=sdt,
+                          acc_dtype_name=adt)
+
+    def oz_call(a, b, p, epi, alpha=None, beta=None, c=None):
+        plan, pkw = oz_plan_kw(a.shape[-2], a.shape[-1], b.shape[-1], p)
+        ops, kw = oz_operands(a, b, epi, alpha, beta, c)
+        got = ozgemm.ozgemm_kernel_call(*ops, epilogue=epi, **pkw)
+        want = ozgemm.ozgemm_plain(a, b, **kw, **pkw)
         return got, want, plan
+
+    def narrow_name(p, sdt, adt):
+        return (f"ozgemm_{p}_"
+                f"{ozgemm.VARIANTS[ozgemm.SLICE_PAIRS[sdt, adt]]}"
+                .replace("/", "-"))
 
     # kernel #1 at the shapes the main paths give it: dd as in the first
     # slice; td/qd square, ragged, the SDP's X @ (A_j Z^-1) stack with X
@@ -310,8 +428,11 @@ def main() -> int:
                      f" beta={plan.slice_beta}, n_slices={plan.n_slices})",
                      got, want)
         a, b = rand_tier((6, 96, 80), p), rand_tier((80, 72), p)
-        got, want, _ = oz_call(a, b, p, "none")
-        hold(f"ozgemm_{p}", "batched 6 x 96x80x72 (B shared)", got, want)
+        c = rand_tier((6, 96, 72), p)
+        for epi in ozgemm.EPILOGUES:
+            got, want, _ = oz_call(a, b, p, epi, alpha, beta, c)
+            hold(f"ozgemm_{p}", f"batched 6 x 96x80x72 (B shared) "
+                 f"epilogue={epi}", got, want)
     # batched == looped, both kernels, every tier, through the engine
     for p in ("dd", "td", "qd"):
         a, b = rand_tier((5, 70, 40), p), rand_tier((5, 40, 66), p)
@@ -325,6 +446,97 @@ def main() -> int:
                 for i in range(5))
             log(f"phase 2: {key}_{p} batched 5 x 70x40x66 == looped: {same}")
             check(same, f"{key}_{p} batched differs from looped")
+    # kernel #2's narrow variants (csrc/ozgemm_narrow.cu), every slice pair
+    # at every tier: the ragged shape, the Hilbert gate's 32^3 and an
+    # rgesv residual, each epilogue drained from one plain accumulator
+    # (ozgemm_plain's own drain, apply_epilogue on the tier module)
+    for p in ("dd", "td", "qd"):
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        hil_p = hil if p == "dd" else hilbert_tier(p, 32, device="cuda")
+        for label, a, b in [
+                ("509x263x131", rand_tier((509, 263), p),
+                 rand_tier((263, 131), p)),
+                ("Hilbert 32^3", hil_p, hil_p),
+                ("2048x2048x4", rand_tier((2048, 2048), p),
+                 rand_tier((2048, 4), p))]:
+            m, k = a.shape
+            n = b.shape[1]
+            c = rand_tier((m, n), p)
+            for sdt, adt in NARROW_PAIRS:
+                plan, pkw = oz_plan_kw(m, k, n, p, sdt, adt)
+                acc = ozgemm.ozgemm_plain(a, b, **pkw)
+                for epi in ozgemm.EPILOGUES:
+                    ops, kw = oz_operands(a, b, epi, alpha, beta, c)
+                    want = ozgemm.apply_epilogue(
+                        acc, kw.get("alpha"), kw.get("beta_s"), kw.get("c"),
+                        ops=mp.tier_module(acc))
+                    hold(narrow_name(p, sdt, adt),
+                         f"{label} epilogue={epi} (bk={plan.bk}, beta="
+                         f"{plan.slice_beta}, n_slices={plan.n_slices})",
+                         ozgemm.ozgemm_kernel_call(*ops, epilogue=epi,
+                                                   **pkw), want)
+        # the batched instantiations: the SDP's X @ (A_j Z^-1) stack with X
+        # shared (the shape of phase 10's Schur stacks), and a B-shared
+        # batch with the three epilogues, each against its own plain call
+        stack = [("SDP stack 99 x 50x50x50 (A shared)",
+                  rand_tier((50, 50), p), rand_tier((99, 50, 50), p), None),
+                 ("batched 6 x 96x80x72 (B shared)",
+                  rand_tier((6, 96, 80), p), rand_tier((80, 72), p),
+                  rand_tier((6, 96, 72), p))]
+        for label, a, b, c in stack:
+            m, k = a.shape[-2:]
+            n = b.shape[-1]
+            for sdt, adt in NARROW_PAIRS:
+                plan, pkw = oz_plan_kw(m, k, n, p, sdt, adt)
+                for epi in ozgemm.EPILOGUES if c is not None else ("none",):
+                    ops, kw = oz_operands(a, b, epi, alpha, beta, c)
+                    hold(narrow_name(p, sdt, adt),
+                         f"{label} epilogue={epi} (bk={plan.bk}, beta="
+                         f"{plan.slice_beta}, n_slices={plan.n_slices})",
+                         ozgemm.ozgemm_kernel_call(*ops, epilogue=epi,
+                                                   **pkw),
+                         ozgemm.ozgemm_plain(a, b, **kw, **pkw))
+        a, b = rand_tier((5, 70, 40), p), rand_tier((5, 40, 66), p)
+        for sdt, adt in NARROW_PAIRS:
+            kw = dict(backend="ozaki-pallas", slice_dtype=sdt, acc_dtype=adt)
+            got = matmul(a, b, **kw)
+            same = all(all(torch.equal(g, w) for g, w in zip(
+                mp.limbs(got[i]), mp.limbs(matmul(a[i], b[i], **kw))))
+                for i in range(5))
+            log(f"phase 2: {narrow_name(p, sdt, adt)} batched 5 x 70x40x66 "
+                f"== looped: {same}")
+            check(same, f"{narrow_name(p, sdt, adt)} batched differs from "
+                  f"looped")
+    # the adversarial headroom case: every slice digit at its largest, so
+    # the f32 diagonal sums reach up to 2^22 grid units of their 24 bits;
+    # the kernel equals the plain version, and the plain version's f32
+    # sums equal the same slice dots in f64, where they are exact
+    a = headroom_operand((128, 64), 8, 1, dev)
+    b = headroom_operand((64, 128), 8, 2, dev)
+    plan, pkw = oz_plan_kw(128, 64, 128, "dd", *NARROW_PAIRS[0])
+    check((plan.bk, plan.slice_beta, plan.n_slices) == (16, 8, 15),
+          f"the headroom case's plan {plan}")
+    hold(narrow_name("dd", *NARROW_PAIRS[0]), "headroom 128x64x128 "
+         "(digits 2^(beta-1) - 1)",
+         ozgemm.ozgemm_kernel_call(*mp.limbs(a), *mp.limbs(b), **pkw),
+         ozgemm.ozgemm_plain(a, b, **pkw))
+    top, tier = 0.0, mp.tier_module(a)
+    for k0 in range(0, 64, 16):
+        sa = _extract_slices(a[:, k0:k0 + 16], 8, 15, axis=-1, ops=tier)
+        sb = _extract_slices(b[k0:k0 + 16, :], 8, 15, axis=-2, ops=tier)
+        sa, _ = _normalize_slices(sa, 8, -1, torch.bfloat16)
+        sb, _ = _normalize_slices(sb, 8, -2, torch.bfloat16)
+        for (d, f32), (_, f64) in zip(
+                diagonal_sums(sa, sb, 15, False, torch.float32),
+                diagonal_sums(sa, sb, 15, False, torch.float64)):
+            check(torch.equal(f32.to(torch.float64), f64),
+                  f"headroom diagonal {d} of slab {k0 // 16}: the f32 sum "
+                  f"is not the exact one")
+            top = max(top, float(f64.abs().max()) * 2.0 ** 14)
+    log(f"phase 2: headroom case: every f32 diagonal sum equals its f64 "
+        f"(exact) value; largest {top:.0f} grid units = "
+        f"2^{torch.log2(torch.tensor(top)).item():.2f} of the 2^24 headroom")
+    check(top > 2 ** 21, "the headroom case did not fill the f32 sums")
     # the elementwise kernels on the SDP loop's shapes: a Cholesky column
     # (div by a broadcast pivot), a triangular-solve row (a broadcast row
     # times a block), the pairwise product (4-D broadcast), the sums
@@ -500,16 +712,19 @@ def main() -> int:
     t9 = time.perf_counter()
     sdp_runs = {}
 
-    def run_sdp(label, prob, **kw):
+    def run_sdp(label, prob, gemm=None, **kw):
         res, t = sync_time(lambda: solve_sdp(
-            prob, gemm_overrides={"backend": "pallas"}, **kw))
+            prob, gemm_overrides=gemm or {"backend": "pallas"}, **kw))
+        best = min(res.history, key=lambda h: h[1])
         log(f"phase 9: {label}: {res.iterations} iterations, gap "
-            f"{res.relative_gap:.3e}, pfeas {res.p_feas_err:.3e}, dfeas "
-            f"{res.d_feas_err:.3e}, primal {res.primal_obj!r}, converged "
-            f"{res.converged}, schur_stats {res.schur_stats}, {t:.1f} s "
-            f"({t / res.iterations:.3f} s per iteration)")
+            f"{res.relative_gap!r} (iteration {best[0]}), pfeas "
+            f"{res.p_feas_err:.3e}, dfeas {res.d_feas_err:.3e}, primal "
+            f"{res.primal_obj!r}, converged {res.converged}, schur_stats "
+            f"{res.schur_stats}, {t:.1f} s ({t / res.iterations:.3f} s per "
+            f"iteration)")
         sdp_runs[label] = {"iterations": res.iterations,
-                           "gap": res.relative_gap, "seconds": t}
+                           "gap": res.relative_gap, "best_iteration": best[0],
+                           "seconds": t}
         return res
 
     theta = theta_problem(50, edge_prob=0.085, seed=0)
@@ -550,6 +765,115 @@ def main() -> int:
     check(all(path2[name][k] > 0 for name in counters for k in (3, 4)),
           "a td/qd kernel of the second main path never launched")
 
+    # ---- 10. the narrow path: kernel #2 with bf16 slices -----------------
+    reset_counts()
+    t10 = time.perf_counter()
+    narrow_runs = {}
+
+    def rel_to_max(got, want):
+        """max |got - want| / max |want| (max_rel_err caps the scale below
+        at 1, which says nothing for the tiny-rows product)."""
+        diff = torch.abs(mp.to_float(mp.sub(got, want)))
+        return float(torch.max(diff)) / float(
+            torch.max(torch.abs(mp.to_float(want))))
+
+    for p, n in (("dd", 4096), ("td", 2048), ("qd", 2048)):
+        A, B, C = (rand_tier((n, n), p) for _ in range(3))
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        got, t = sync_time(lambda: rgemm(
+            "n", "n", alpha, A, B, beta, C, backend="ozaki-pallas",
+            **NARROW))
+        want = rgemm("n", "n", alpha, A, B, beta, C, backend="pallas")
+        err = max_rel_err(got, want)
+        gate = NARROW_DD_BOUND if p == "dd" else 16 * n * ULP[p]
+        log(f"phase 10: rgemm {p} n={n} ozaki-pallas bf16/f32: {t:.4f} s, "
+            f"{2 * n ** 3 / t / 1e12:.4f} TFLOP/s (2mnk/s); max_rel_err "
+            f"against pallas {err:.3e} (gate {gate:.3e})")
+        check(err <= gate and all(bool(torch.isfinite(l).all())
+                                  for l in mp.limbs(got)),
+              f"the narrow {p} Rgemm against pallas")
+        narrow_runs[f"rgemm_{p}_n{n}"] = {"seconds": t,
+                                          "tflops": 2 * n ** 3 / t / 1e12}
+        del A, B, C, got, want
+        err = hilbert_relative_error(p, 32, "ozaki-pallas", device="cuda",
+                                     **NARROW)
+        log(f"phase 10: Hilbert n=32 {p} ozaki-pallas bf16/f32: rel err "
+            f"{err:.3e} (gate {GATES[p]:.3e})")
+        check(err <= GATES[p], f"{p} Hilbert gate on the narrow kernel")
+    # the tiny-rows operands of tests/test_ozgemm_kernel.py, at 1024^3
+    n = 1024
+    At = dd.from_float(torch.randn(n, n, generator=gen, device=dev,
+                                   dtype=torch.float64) * 1e-30)
+    Bt = dd.from_float(torch.randn(n, n, generator=gen, device=dev,
+                                   dtype=torch.float64) * 1e25)
+    err = rel_to_max(matmul(At, Bt, backend="ozaki-pallas", **NARROW),
+                     matmul(At, Bt, backend="pallas"))
+    log(f"phase 10: tiny rows (A x 1e-30, B x 1e25) dd n={n} bf16/f32: "
+        f"error {err:.3e} of the largest entry (gate "
+        f"{NARROW_DD_BOUND:.3e})")
+    check(err <= NARROW_DD_BOUND, "the narrow kernel on tiny rows")
+    # the other narrow pairs through Rgemm at every tier
+    for p, n in (("dd", 1024), ("td", 512), ("qd", 512)):
+        A, B, C = (rand_tier((n, n), p) for _ in range(3))
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        want = rgemm("n", "n", alpha, A, B, beta, C, backend="pallas")
+        gate = NARROW_DD_BOUND if p == "dd" else 16 * n * ULP[p]
+        for sdt, adt in NARROW_PAIRS[1:]:
+            got = rgemm("n", "n", alpha, A, B, beta, C,
+                        backend="ozaki-pallas", slice_dtype=sdt,
+                        acc_dtype=adt)
+            err = max_rel_err(got, want)
+            log(f"phase 10: rgemm {p} n={n} ozaki-pallas {sdt}/{adt}: "
+                f"max_rel_err against pallas {err:.3e} (gate {gate:.3e})")
+            check(err <= gate, f"the {sdt}/{adt} {p} Rgemm against pallas")
+    # the refined solve: its residual through the fused drain
+    n = 2048
+    a64 = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    b64 = a64 @ torch.randn(n, 4, generator=gen, device=dev,
+                            dtype=torch.float64)
+    (x, info), t = sync_time(lambda: rgesv(
+        a64, b64, factor_tier="f64", target_tier="dd",
+        backend="ozaki-pallas", **NARROW))
+    log(f"phase 10: rgesv n={n} nrhs=4 f64->dd ozaki-pallas bf16/f32: "
+        f"{t:.2f} s, converged={info.converged} in {info.iterations} "
+        f"iterations, backward errors "
+        f"{[f'{e:.2e}' for e in info.backward_errors]} (gate 4 n u_dd = "
+        f"{4 * n * U_DD:.3e})")
+    check(info.converged and info.final_backward_error <= 4 * n * U_DD,
+          "the narrow rgesv did not converge to 4 n u_dd")
+    narrow_runs["rgesv_n2048"] = {"seconds": t,
+                                  "iterations": info.iterations}
+    del a64, b64, x
+    r10 = run_sdp("theta1 shape binary128, ozaki-pallas bf16/f32", theta,
+                  gemm={"backend": "ozaki-pallas", **NARROW},
+                  precision="binary128", max_iters=80)
+    ref = json.loads((src.parent / THETA1_NARROW_REF).read_text())
+    hist = [[float(v) for v in h] for h in r10.history]
+    same = next((i for i, (h, w) in enumerate(zip(hist, ref["history"]))
+                 if h != w), min(len(hist), len(ref["history"])))
+    log(f"phase 10: the history (gap, pfeas, dfeas, mu per iteration) "
+        f"equals the eager reference's ({THETA1_NARROW_REF}, "
+        f"{ref['iterations']} iterations) bit for bit over its first "
+        f"{same}")
+    check(same == len(ref["history"]),
+          f"theta1 on the narrow kernel left the eager reference's history "
+          f"at iteration {same + 1} of its {len(ref['history'])}")
+    log(f"phase 10: gates gap <= {ref['gap']!r} (the eager reference's "
+        f"best), pfeas <= {THETA1_REF_PFEAS:.4e}, dfeas < 1e-28")
+    check(r10.relative_gap <= ref["gap"]
+          and r10.p_feas_err <= THETA1_REF_PFEAS and r10.d_feas_err < 1e-28,
+          "theta1 binary128 on the narrow kernel: Table V receipts")
+    narrow_runs["sdp_theta1_binary128"] = sdp_runs.pop(
+        "theta1 shape binary128, ozaki-pallas bf16/f32")
+    # the whole history at full precision, to set beside later references
+    narrow_runs["sdp_theta1_binary128"]["history"] = hist
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    path10 = read_counts()
+    log(f"phase 10: kernel launches on the narrow path: {path10}")
+    check(all(path10["ozgemm"][nl, v] > 0 for nl in _build.LIMBS
+              for v in ozgemm.VARIANTS.values()),
+          "a narrow variant of kernel #2 never launched on its path")
+
     # ---- 7. times beside bounds ----------------------------------------
     def event_ms(fn, reps):
         fn()  # warm up
@@ -574,20 +898,22 @@ def main() -> int:
     kernels = []
 
     def record(name, source, replaces, ms, plain_ms, b, shape, f64_ms,
-               note=""):
+               note="", launches=None, extra=None):
         key = name.split("_")[0]
         k = NLIMBS[name.split("_")[1]]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": path1[key][k] + path2[key][k],
+            "launches": path1[key][k] + path2[key][k] if launches is None
+            else launches,
             "max_abs_err": max_err.get(name, 0.0), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "shape": shape,
-            "context_f64_matmul_ms": f64_ms})
+            **(extra or {"context_f64_matmul_ms": f64_ms})})
+        what = "bf16" if extra else "f64"
         log(f"phase 7: {name} at {shape}: {ms:.2f} ms (bound {b[0]:.2f} ms "
             f"by {b[1]}, {b[0] / ms:.1%} of it), plain version "
-            f"{plain_ms:.1f} ms{note}; f64 torch.matmul (context only) "
+            f"{plain_ms:.1f} ms{note}; {what} torch.matmul (context only) "
             f"{f64_ms:.3f} ms")
 
     ml_src, ml_rep = ("src/repro_torch/csrc/mlgemm.cu",
@@ -680,6 +1006,65 @@ def main() -> int:
                note + ", epilogue full")
         del A, B, C, oz_ops
 
+    # the narrow variants at the same shapes, epilogue full; their plain
+    # versions at 512^3 (dd) and 256^3 (td/qd), held bit for bit again.
+    # Bound: the larger of the pair dots on their unit (bf16 tensor cores,
+    # FFMA, or DFMA counted with the f64 work) and the f64 instructions of
+    # extraction, normalization, rescale, folds and epilogue
+    nz_src, nz_rep = ("src/repro_torch/csrc/ozgemm_narrow.cu",
+                      "src/repro/kernels/ozgemm.py:78")
+    for p, n, n_plain in (("dd", 4096, 512), ("td", 2048, 256),
+                          ("qd", 2048, 256)):
+        k = NLIMBS[p]
+        A, B, C = (rand_tier((n, n), p) for _ in range(3))
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        a_s, b_s, c_s = (rand_tier((n_plain, n_plain), p) for _ in range(3))
+        ops, _ = oz_operands(A, B, "full", alpha, beta, C)
+        ops_s, kw_s = oz_operands(a_s, b_s, "full", alpha, beta, c_s)
+        a16, b16 = mp.limbs(A)[0].bfloat16(), mp.limbs(B)[0].bfloat16()
+        bf16_ms = event_ms(lambda: torch.matmul(a16, b16), 5)
+        del a16, b16
+        slice_ops = OZGEMM_OPS_PER_SLICE if k == 2 else 3 + add_ops(k)
+        fold_ops = ADD_FLOAT_OPS if k == 2 else renorm_ops(k + 1, k)
+        for sdt, adt in NARROW_PAIRS:
+            name = narrow_name(p, sdt, adt)
+            plan, pkw = oz_plan_kw(n, n, n, p, sdt, adt)
+            ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(
+                *ops, epilogue="full", **pkw), 2)
+            _, pkw_s = oz_plan_kw(n_plain, n_plain, n_plain, p, sdt, adt)
+            want, t = sync_time(lambda: ozgemm.ozgemm_plain(
+                a_s, b_s, **kw_s, **pkw_s))
+            same, err = compare(name, ozgemm.ozgemm_kernel_call(
+                *ops_s, epilogue="full", **pkw_s), want)
+            log(f"phase 7: {name} {n_plain}^3 epilogue=full kernel == "
+                f"plain: {same} (max abs diff {err:.3e})")
+            check(same, f"{name} {n_plain}^3 differs from its plain version")
+            s_n, mnk = plan.n_slices, n ** 3
+            dots = mnk * pairs(s_n)  # multiply-adds of the pair dots
+            f64_ops = (2 * n * n * s_n * (slice_ops + NARROW_NORM_OPS)
+                       + n * n * (n // plan.bk) * s_n
+                       * (fold_ops + NARROW_RESCALE_OPS)
+                       + n * n * (2 * tier_mul_ops(k) + add_ops(k)))
+            if adt == "float64":
+                f64_ops += dots
+                dot_ms = 0.0
+            elif sdt == "bfloat16":
+                dot_ms = 2 * dots / BF16_TC_PEAK * 1e3
+            else:
+                dot_ms = dots / F32_INSTR_PER_S * 1e3
+            b = bound(f64_ops, 8 * k * 4 * n * n + 8 * 2 * k)
+            b = (max(b[0], dot_ms), b[1])
+            record(name, nz_src, nz_rep, ms, t * 1e3, b, [n, n, n], bf16_ms,
+                   f" at {n_plain}^3, epilogue full, bound parts: dots "
+                   f"{dot_ms:.2f} ms, f64 {f64_ops / F64_INSTR_PER_S * 1e3:.2f}"
+                   f" ms", launches=path10["ozgemm"][
+                       k, ozgemm.VARIANTS[ozgemm.SLICE_PAIRS[sdt, adt]]],
+                   extra={"context_bf16_matmul_ms": bf16_ms,
+                          "bound_dots_ms": dot_ms,
+                          "bound_f64_ms": f64_ops / F64_INSTR_PER_S * 1e3,
+                          "slices": [plan.slice_beta, plan.n_slices]})
+        del A, B, C, ops, ops_s
+
     # the elementwise kernels on the SDP's pairwise product
     shape = [m_sdp, m_sdp, n_sdp, n_sdp]
     for p in ("dd", "td", "qd"):
@@ -701,7 +1086,32 @@ def main() -> int:
                "(m, n*n) x (n*n, m) matmul)")
         del st_a, st_v
 
+    # ---- 11. the autotuner on the card, once ---------------------------
+    n = 2048
+    tuned, t = sync_time(lambda: autotune(n, n, n, backend="ozaki-pallas"))
+    plan = make_plan(n, n, n, backend="ozaki-pallas")
+    log(f"phase 11: autotune({n}, {n}, {n}, backend='ozaki-pallas') in "
+        f"{t:.2f} s: bk={tuned.bk}, n_slices={tuned.n_slices}; cache "
+        f"{default_cache().path}: "
+        f"{json.dumps(json.loads(plans.read_text()))}; make_plan -> source="
+        f"{plan.source}, bk={plan.bk}, n_slices={plan.n_slices}")
+    check(plan.source == "tuned"
+          and (plan.bk, plan.n_slices) == (tuned.bk, tuned.n_slices),
+          "make_plan did not adopt the tuned entry")
+    nplan = make_plan(n, n, n, backend="ozaki-pallas", **NARROW)
+    want = slice_params(nplan.bk, "float32", "bfloat16", target_bits=107)
+    log(f"phase 11: a bf16/f32 plan in the same bucket: source="
+        f"{nplan.source}, bk={nplan.bk}, (beta, n_slices)="
+        f"{(nplan.slice_beta, nplan.n_slices)}, re-solved {want}")
+    check(nplan.source == "tuned" and nplan.bk == tuned.bk
+          and (nplan.slice_beta, nplan.n_slices) == want
+          and nplan.n_slices != tuned.n_slices,
+          "a narrow plan adopted the tuned f64 slice count")
+    shutil.rmtree(plans.parent, ignore_errors=True)
+
     log(f"phase 9 summary: {json.dumps(sdp_runs)}")
+    log(f"phase 10 summary: {json.dumps(narrow_runs)}")
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # exactly as nvidia-smi prints name and power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -96,13 +96,15 @@ def _square_oracle(limb_bytes: tuple, n: int):
 
 
 def hilbert_relative_error(precision: str = "dd", n: int = 16,
-                           backend: str = "xla", device=None) -> float:
+                           backend: str = "xla", device=None,
+                           **overrides) -> float:
     """Max relative error of one engine backend on H @ H against the exact
-    rational product of the tier's own H entries."""
+    rational product of the tier's own H entries (``overrides`` feed the
+    planner, e.g. ``slice_dtype=``/``acc_dtype=``)."""
     from ..gemm import matmul
 
     x = hilbert_tier(precision, n, device)
-    got = _limbs_np(matmul(x, x, backend=backend))
+    got = _limbs_np(matmul(x, x, backend=backend, **overrides))
     want = _square_oracle(tuple(l.tobytes() for l in _limbs_np(x)), n)
     worst = 0.0
     for i in range(n):

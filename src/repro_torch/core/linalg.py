@@ -10,9 +10,10 @@ Every routine is limb-count generic through ``core.mp``.  The reference's
 masked ``fori_loop``s over static shapes become Python loops over slices:
 each step computes the same elementwise tier ops on the rows and columns
 the mask would have kept, and pivots are int64 tensors on the operands'
-device.  Unlike the reference, the triangular solves sum each row over
-the solved prefix only (not over a zero-masked full row), so the
-halving-tree pairing — and with it the last bits — may differ from it.
+device.  The sums of the triangular solves and of the Cholesky factor run
+over the full masked row, as the reference's do: ``mp.sum_``'s halving
+tree pairs its terms by position, so a prefix-only sum would round
+differently.
 """
 
 from __future__ import annotations
@@ -65,17 +66,23 @@ def rgetrf2(a):
 
 
 def _trsm_left(t, b, *, lower: bool, unit_diag: bool):
-    """Solve T X = B for triangular T by substitution, row by row."""
+    """Solve T X = B for triangular T by substitution, row by row.
+
+    Each row's update sums over all nb rows, T's row masked to the solved
+    ones and X zero where unsolved, as the reference's ``_trsm`` does: the
+    halving tree of ``mp.sum_`` pairs its terms by position, so summing
+    only the solved prefix would round differently.  The masked rows are
+    T's strict triangle, cut once.
+    """
     nb = t.shape[0]
-    x = _clone(b)
+    x = mp.map_limbs(torch.zeros_like, b)
+    strict = mp.map_limbs(
+        (lambda l: torch.tril(l, -1)) if lower else
+        (lambda l: torch.triu(l, 1)), t)
     order = range(nb) if lower else range(nb - 1, -1, -1)
     for i in order:
-        xi = b[i]
-        solved = slice(0, i) if lower else slice(i + 1, nb)
-        if (i if lower else nb - 1 - i) > 0:
-            trow = mp.map_limbs(lambda l: l[i, solved][:, None], t)
-            contrib = mp.sum_(mp.mul(trow, x[solved]), axis=0)
-            xi = mp.sub(xi, contrib)
+        tcol = mp.map_limbs(lambda l: l[i][:, None], strict)
+        xi = mp.sub(b[i], mp.sum_(mp.mul(tcol, x), axis=0))
         if not unit_diag:
             piv = t[i:i + 1, i]
             xi = mp.div(xi, mp.broadcast_to(piv, xi.shape))
@@ -163,24 +170,26 @@ def lu_solve(lu, piv, b):
 
 
 def rpotrf(a):
-    """Lower Cholesky factor in multi-limb arithmetic: A = L L^T."""
-    lmat = mp.map_limbs(torch.tril, _clone(a))
+    """Lower Cholesky factor in multi-limb arithmetic: A = L L^T.
+
+    The sums of step j run over all n columns of L, whose columns k >= j
+    are still zero, as the reference's ``_potrf`` masks them (``mp.sum_``'s
+    halving tree pairs its terms by position, so a j-term sum would round
+    differently).  L starts at zero and gains column j at step j, so it is
+    its own mask.
+    """
+    lmat = mp.map_limbs(torch.zeros_like, a)
     n = a.shape[0]
     for j in range(n):
-        ajj = lmat[j:j + 1, j]
-        rowj = lmat[j:j + 1, :j]
-        if j:
-            ajj = mp.sub(ajj, mp.sum_(mp.mul(rowj, rowj), axis=1))
-        d = mp.sqrt(ajj)
-        _set(lmat, (slice(j, j + 1), j), d)
-        if j + 1 < n:
-            num = lmat[j + 1:, j]
-            if j:
-                num = mp.sub(num, mp.sum_(
-                    mp.mul(lmat[j + 1:, :j], mp.broadcast_to(
-                        rowj, (n - j - 1, j))), axis=1))
+        rowj = lmat[j:j + 1]
+        d = mp.sqrt(mp.sub(a[j:j + 1, j],
+                           mp.sum_(mp.mul(rowj, rowj), axis=1)))
+        if j + 1 < n:  # before column j is written: it is still zero
+            num = mp.sub(a[j + 1:, j], mp.sum_(mp.mul(
+                lmat[j + 1:], mp.broadcast_to(rowj, (n - j - 1, n))), axis=1))
             _set(lmat, (slice(j + 1, None), j),
                  mp.div(num, mp.broadcast_to(d, num.shape)))
+        _set(lmat, (slice(j, j + 1), j), d)
     return lmat
 
 

@@ -4,8 +4,10 @@
 //
 // Replaces the Pallas kernel repro/kernels/ozgemm.py (_ozgemm_kernel /
 // ozgemm_kernel_call, with _slab_update and _fold_diagonal): the engine's
-// `ozaki-pallas` backend, f64 slices, f64 accumulation.  The build compiles
-// this file once per limb count (-DKLIMBS=2|3|4, see kernels/_build.py).
+// `ozaki-pallas` backend, f64 slices, f64 accumulation (bf16 and f32
+// slices are csrc/ozgemm_narrow.cu; the pieces both share are in
+// oz_device.cuh).  The build compiles this file once per limb count
+// (-DKLIMBS=2|3|4, see kernels/_build.py).
 //
 // What it computes, per 64x64 output tile and per K slab of the plan's
 // depth bk, in slab order:
@@ -48,53 +50,15 @@
 // leaves every max unchanged, so masking equals the reference's padding.
 #include <cuda_runtime.h>
 
-#include "dd_device.cuh"
-#include "ml_device.cuh"
-
-#ifndef KLIMBS
-#error "build with -DKLIMBS=2, 3 or 4"
-#endif
+#include "oz_device.cuh"
 
 namespace {
 
-constexpr int K = KLIMBS;
-constexpr int BM = 64, BN = 64;
+using namespace oz;
+
 constexpr int TM = 4, TN = 4;
 constexpr int TX = BN / TN, TY = BM / TM;  // 16 x 16 threads
 constexpr int THREADS = TX * TY;
-constexpr int MAX_SLICES = 16;
-
-enum Epilogue { kNone = 0, kAlpha = 1, kFull = 2 };
-
-struct In {
-  const double *p[K];
-};
-struct Out {
-  double *p[K];
-};
-
-// _pow2_near of core/ozaki.py: mu / mantissa(mu) == 2^exponent(mu).
-__device__ __forceinline__ double pow2_near(double mu) {
-  mu = mu < 0x1p-511 ? 0x1p-511 : mu;  // NaN passes through
-  int e;
-  double m = frexp(mu, &e);
-  return __ddiv_rn(mu, m);
-}
-
-// r -= s in the residual's tier (mp.sub(r, mp.from_float(s))).
-__device__ __forceinline__ void sub_slice(double (&r)[K], double s) {
-  if constexpr (K == 2) {
-    dd::add_to(r[0], r[1], -s, -0.0);
-  } else {
-    double neg[K], out[K];
-    neg[0] = -s;
-#pragma unroll
-    for (int l = 1; l < K; ++l) neg[l] = -0.0;
-    ml::add_limbs<K>(r, neg, out);
-#pragma unroll
-    for (int l = 0; l < K; ++l) r[l] = out[l];
-  }
-}
 
 // Slices of one operand element on its row's (or column's) anchor ladder;
 // out[s * stride] receives slice s.
@@ -103,45 +67,8 @@ __device__ __forceinline__ void extract(double (&r)[K], double sigma, bool nonze
                                         int stride) {
   const double step = dd::pow2(-beta);
   for (int s = 0; s < n_slices; ++s) {
-    double sl = nonzero ? dd::sub(dd::add(r[0], sigma), sigma) : 0.0;
-    out[s * stride] = sl;
-    sub_slice(r, sl);
+    out[s * stride] = slice_step(r, sigma, nonzero);
     sigma = dd::mul(sigma, step);
-  }
-}
-
-// acc += one diagonal's exact f64 sum, in acc's tier.
-__device__ __forceinline__ void fold(double (&acc)[K], double dsum) {
-  if constexpr (K == 2) {
-    dd::add_float_to(acc[0], acc[1], dsum);
-  } else {
-    double t[K + 1];
-#pragma unroll
-    for (int l = 0; l < K; ++l) t[l] = acc[l];
-    t[K] = dsum;
-    ml::renorm<K>(t, acc);
-  }
-}
-
-// out = x * y in the tier (mp.mul, x first).
-__device__ __forceinline__ void tier_mul(const double (&x)[K], const double (&y)[K],
-                                         double (&out)[K]) {
-  if constexpr (K == 2) {
-    dd::mul(x[0], x[1], y[0], y[1], out[0], out[1]);
-  } else {
-    ml::mul_limbs<K>(x, y, out);
-  }
-}
-
-// acc += y in the tier (mp.add).
-__device__ __forceinline__ void tier_add_to(double (&acc)[K], const double (&y)[K]) {
-  if constexpr (K == 2) {
-    dd::add_to(acc[0], acc[1], y[0], y[1]);
-  } else {
-    double out[K];
-    ml::add_limbs<K>(acc, y, out);
-#pragma unroll
-    for (int l = 0; l < K; ++l) acc[l] = out[l];
   }
 }
 
@@ -189,8 +116,7 @@ ozgemm_kernel(In a, In b, const double *__restrict__ alpha,
           const double *src =
               is_a ? &a.p[0][za + (long long)g * k + k0 + kk]
                    : &b.p[0][zb + (long long)(k0 + kk) * n + g];
-          double x = fabs(__ldg(src));
-          mu = (x > mu || isnan(x)) && !isnan(mu) ? x : mu;
+          mu = nan_max(mu, fabs(__ldg(src)));
         }
       }
       (is_a ? sig_a : sig_b)[r] = dd::mul(pow2_near(mu), up);
@@ -254,14 +180,7 @@ ozgemm_kernel(In a, In b, const double *__restrict__ alpha,
   }
 
   // drain: the fused Rgemm epilogue, then the store
-  double al[K], be[K];
-  bool beta_zero = epilogue == kFull;
-#pragma unroll
-  for (int l = 0; l < K; ++l) {
-    al[l] = epilogue != kNone ? alpha[l] : 0.0;
-    be[l] = epilogue == kFull ? beta_s[l] : 0.0;
-    beta_zero = beta_zero && be[l] == 0.0;
-  }
+  const Scalars sc = load_scalars(alpha, beta_s, epilogue);
   const long long zc = BATCHED ? blockIdx.z * stride_c : 0;
   const long long zo = BATCHED ? blockIdx.z * (long long)m * n : 0;
 #pragma unroll
@@ -273,26 +192,7 @@ ozgemm_kernel(In a, In b, const double *__restrict__ alpha,
       int cc = col0 + tx + TX * j;
       if (cc >= n) continue;
       long long off = (long long)r * n + cc;
-      double res[K];
-#pragma unroll
-      for (int l = 0; l < K; ++l) res[l] = acc[i][j][l];
-      if (epilogue != kNone) {
-        double t[K];
-        tier_mul(al, res, t);
-#pragma unroll
-        for (int l = 0; l < K; ++l) res[l] = t[l];
-      }
-      if (epilogue == kFull) {
-        double cv[K], bc[K];
-#pragma unroll
-        for (int l = 0; l < K; ++l) cv[l] = c.p[l][zc + off];
-        tier_mul(be, cv, bc);
-#pragma unroll
-        for (int l = 0; l < K; ++l) bc[l] = beta_zero ? 0.0 : bc[l];
-        tier_add_to(res, bc);
-      }
-#pragma unroll
-      for (int l = 0; l < K; ++l) o.p[l][zo + off] = res[l];
+      drain_one(acc[i][j], sc, epilogue, c, zc + off, o, zo + off);
     }
   }
 }
@@ -301,8 +201,7 @@ ozgemm_kernel(In a, In b, const double *__restrict__ alpha,
 
 // Shared memory one CTA needs for a slab depth and slice count.
 extern "C" int ozgemm_smem_bytes(int bk, int n_slices) {
-  return (int)(n_slices * bk * (BM + BN) * sizeof(double) +
-               (BM + BN) * (sizeof(double) + sizeof(bool)));
+  return smem_bytes(bk, n_slices, kF64);
 }
 
 // out = epilogue(A @ B) at KLIMBS limbs over `batch` entries.  a, b, c and
@@ -319,8 +218,7 @@ extern "C" int ozgemm(const double *const *a, const double *const *b,
                       int k, int batch, long long stride_a, long long stride_b,
                       long long stride_c, int bk, int beta, int n_slices,
                       int n_diag, int epilogue, cudaStream_t stream) {
-  if (n_slices < 1 || n_slices > MAX_SLICES || bk < 1)
-    return (int)cudaErrorInvalidValue;
+  if (n_slices < 1 || bk < 1) return (int)cudaErrorInvalidValue;
   In ai, bi, ci;
   Out oo;
   for (int l = 0; l < K; ++l) {

@@ -19,8 +19,8 @@ back.  Where the reference vmaps the planned 2-D kernel, each backend here
 takes the batch axis itself: the two CUDA kernels as a grid axis (one
 launch per call), the tensor-op backends by broadcasting.  As in the
 reference, a batched call applies the epilogue as a post-step on every
-backend.  Sharded, streamed and guarded execution, failover and the plan
-cache are not ported yet (``make_plan`` raises on their options).
+backend.  Sharded, streamed and guarded execution and failover are not
+ported yet (``make_plan`` raises on their options).
 """
 
 from __future__ import annotations

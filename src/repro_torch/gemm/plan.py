@@ -22,10 +22,15 @@ Backends keep their reference names.  On a CUDA tensor:
 
 On a CPU tensor each kernel wrapper runs its plain PyTorch version.
 ``batch_shape=`` plans a batched call (``batch="vmap"``, the reference's
-name; the CUDA kernels take the batch as a grid axis).  The plan cache,
-autotuner, guarded execution, SUMMA sharding and K streaming are not
-ported yet: their options raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+name; the CUDA kernels take the batch as a grid axis).
+
+Block shapes resolve as in the reference: explicit overrides > a tuned
+entry of the port's plan cache (``gemm/cache.py``, written by
+``gemm/autotune.py``) > the clamped heuristic ``DEFAULT_BLOCKS``.  Guarded
+execution, SUMMA sharding and K streaming are not ported yet: their
+options raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings them; so is the reference's quarantine consult, which needs the
+engine's failover (ROADMAP.md queue item 4).
 ``interpret`` has no meaning without Pallas and is not a field here.
 """
 
@@ -40,6 +45,7 @@ import torch
 
 from .._device import resolve_device
 from ..core.mp import PRECISIONS
+from . import cache as plan_cache
 
 __all__ = ["GemmPlan", "make_plan", "resolve_backend", "round_up",
            "BACKENDS", "PRECISIONS", "DEFAULT_BLOCKS", "OZAKI_TARGET_BITS"]
@@ -91,7 +97,7 @@ class GemmPlan:
     target_bits: Optional[int] = None  # ozaki significand coverage target
     full: Optional[bool] = None        # ozaki: keep sub-target slice products
     check: str = "none"                # guarded execution: not ported yet
-    source: str = "heuristic"          # heuristic | override
+    source: str = "heuristic"          # heuristic | tuned | override
 
     @property
     def blocks(self) -> dict:
@@ -152,11 +158,16 @@ def make_plan(m: int, k: int, n: int, *, dtype=torch.float64,
               slice_dtype=None, acc_dtype=None,
               n_slices: Optional[int] = None,
               target_bits: Optional[int] = None, full: Optional[bool] = None,
-              check: str = "none") -> GemmPlan:
-    """Plan one GEMM workload (batch_shape) x (m, k) @ (k, n) from
-    heuristics and overrides.
+              check: str = "none", use_cache: bool = True) -> GemmPlan:
+    """Plan one GEMM workload (batch_shape) x (m, k) @ (k, n).
 
-    ``platform=None`` means ``cuda`` (and raises without CUDA).
+    Consults the tuned-block cache for (shape bucket, dtype, limb count,
+    batch bucket, platform) before the clamped heuristic, as the reference
+    does; ``use_cache=False`` skips it.  A tuned ``n_slices`` is adopted
+    only when the caller gave no coverage target and no slice or
+    accumulator dtype (it was tuned for the platform's dtypes at the
+    default target).  ``platform=None`` means ``cuda`` (and raises
+    without CUDA).
     """
     from ..core import ozaki as _ozaki
 
@@ -182,8 +193,32 @@ def make_plan(m: int, k: int, n: int, *, dtype=torch.float64,
     platform = resolve_platform(platform)
     dtype = _ozaki.as_dtype(dtype)
 
-    blocks = _clamp_blocks(m, k, n, DEFAULT_BLOCKS)
-    source = "override" if (bm or bn or bk) else "heuristic"
+    source = "heuristic"
+    blocks = dict(DEFAULT_BLOCKS)
+    if use_cache and be in ("pallas", "xla", "ozaki-pallas") \
+            and (bm, bn, bk) == (None,) * 3:
+        key = plan_cache.cache_key(
+            platform, str(dtype).removeprefix("torch."), m, k, n, be,
+            nlimbs=PRECISIONS[precision], batch_shape=batch_shape)
+        tuned = plan_cache.default_cache().get(key)
+        # adopt only well-formed entries: a bad persistent value degrades
+        # to the heuristic instead of breaking every GEMM in the bucket
+        if tuned and all(isinstance(tuned.get(x), int) and tuned[x] > 0
+                         for x in ("bm", "bn", "bk")):
+            blocks = {x: int(tuned[x]) for x in ("bm", "bn", "bk")}
+            source = "tuned"
+            # a tuned n_slices covers the default target at the platform's
+            # dtypes: a target or dtype override re-solves it (bf16 slices
+            # cap beta at 8, so an f64-tuned count would under-cover)
+            if be == "ozaki-pallas" and n_slices is None and \
+                    target_bits is None and \
+                    slice_dtype is None and acc_dtype is None and \
+                    isinstance(tuned.get("n_slices"), int) and \
+                    tuned["n_slices"] > 1:
+                n_slices = tuned["n_slices"]
+    blocks = _clamp_blocks(m, k, n, blocks)
+    if bm or bn or bk:
+        source = "override"
     blocks["bm"] = bm or blocks["bm"]
     blocks["bn"] = bn or blocks["bn"]
     blocks["bk"] = bk or blocks["bk"]

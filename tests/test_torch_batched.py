@@ -44,8 +44,10 @@ def _hermetic(tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jgemm.set_default_cache(jgemm.PlanCache(str(tmp_path / "plans.json")))
+    tgemm.set_default_cache(tgemm.PlanCache(str(tmp_path / "t.json")))
     yield
     jgemm.set_default_cache(None)
+    tgemm.set_default_cache(None)
     torch.set_num_threads(threads)
 
 

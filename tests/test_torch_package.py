@@ -20,6 +20,7 @@ import torch
 
 import repro_torch
 from repro import gemm as jgemm
+from repro_torch import gemm as tgemm
 from repro_torch.core import dd, mp
 from repro_torch.interop import limbs_from_numpy, limbs_to_numpy, \
     plan_from_dict
@@ -27,6 +28,16 @@ from repro_torch.kernels.mlgemm import mlgemm_kernel_call
 from repro_torch.kernels.ozgemm import ozgemm_kernel_call
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(autouse=True)
+def _hermetic(tmp_path):
+    # both planners read their plan caches: never the user's files
+    jgemm.set_default_cache(jgemm.PlanCache(str(tmp_path / "j.json")))
+    tgemm.set_default_cache(tgemm.PlanCache(str(tmp_path / "t.json")))
+    yield
+    jgemm.set_default_cache(None)
+    tgemm.set_default_cache(None)
 
 
 def test_imports_no_jax_and_no_reference():
@@ -87,9 +98,19 @@ def _dd_limbs(shape, seed):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     a, b = _dd_limbs((8, 8), 0), _dd_limbs((8, 8), 1)
-    # narrow slices / accumulators exist only in the reference's TPU path
-    with pytest.raises(NotImplementedError, match="f64"):
-        ozgemm_kernel_call(*a, *b, bk=8, beta=8, n_slices=14,
+    # a (slice, accumulator) pair no plan of the reference makes (its
+    # slice_bits has no bf16 accumulator), and a slice count whose slices
+    # do not fit a Hopper block's shared memory
+    with pytest.raises(ValueError, match="bfloat16 with accumulator "
+                                         "bfloat16"):
+        ozgemm_kernel_call(*a, *b, bk=8, beta=4, n_slices=28,
+                           slice_dtype_name="bfloat16",
+                           acc_dtype_name="bfloat16")
+    with pytest.raises(KeyError):
+        jgemm.make_plan(8, 8, 8, backend="ozaki-pallas", use_cache=False,
+                        slice_dtype="bfloat16", acc_dtype="bfloat16")
+    with pytest.raises(ValueError, match="asks 248960 B of shared memory"):
+        ozgemm_kernel_call(*a, *b, bk=16, beta=7, n_slices=40,
                            slice_dtype_name="bfloat16",
                            acc_dtype_name="float32")
     # an unregistered limb count, and batch axes that do not agree

@@ -3,7 +3,10 @@
 Same problems (the port's generators equal the reference's, checked
 below) go through ``repro.core.sdp.solve_sdp`` and the port's on the CPU,
 on the card's GEMM configuration ``{"backend": "pallas"}`` (kernel #1's
-plain version here).  Tolerances:
+plain version here) and, at binary128, on kernel #2 with bf16 slices and
+f32 pair dots (``ozaki-pallas`` with the narrow overrides; chip_smoke.py
+phase 10 holds the card's whole theta1 history to the reference's, run
+eagerly).  Tolerances:
   * binary128: the same iteration count and Schur statistics, the
     per-iteration gap / primal / dual infeasibility / mu equal bit for
     bit over the first iterations (as measured), and X, y and Z within
@@ -17,6 +20,9 @@ plain version here).  Tolerances:
     sums round differently, and the difference grows as X and Z go
     singular), then both stall in the f64 floor, which is the paper's
     claim: gap in [1e-13, 1e-8];
+  * one binary128 step on kernel #2's narrow plan against the reference
+    run eagerly (``jax.disable_jit()``, no FMA contraction): X, y and Z
+    bit for bit;
   * the building blocks of one iteration (stack_trace, combine,
     pairwise_trace, the batched matmul) at td and qd, against the
     reference's function bodies run eagerly: bit for bit, the order being
@@ -37,6 +43,7 @@ import torch
 from repro import gemm as jgemm
 from repro.core import mp as jmp
 from repro.core import sdp as jsdp
+from repro_torch import gemm as tgemm
 from repro_torch.core import mp as tmp
 from repro_torch.core import sdp as tsdp
 from repro_torch.interop import limbs_from_numpy
@@ -52,8 +59,10 @@ def _hermetic(tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jgemm.set_default_cache(jgemm.PlanCache(str(tmp_path / "plans.json")))
+    tgemm.set_default_cache(tgemm.PlanCache(str(tmp_path / "t.json")))
     yield
     jgemm.set_default_cache(None)
+    tgemm.set_default_cache(None)
     torch.set_num_threads(threads)
 
 
@@ -90,6 +99,48 @@ def test_binary128_follows_reference(name):
         want = np.asarray(want)
         np.testing.assert_allclose(
             got, want, rtol=0, atol=2.0 ** -100 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_binary128_narrow_follows_reference(name):
+    # the Schur stacks and residuals on kernel #2 with bf16 slices and f32
+    # pair dots (its plain version here), against the reference's same
+    # plan in interpret mode: the tolerances of the pallas plan above
+    jp, tp = _problems(name)
+    kw = dict(precision="binary128", max_iters=3, gemm_overrides={
+        "backend": "ozaki-pallas", "slice_dtype": "bfloat16",
+        "acc_dtype": "float32"})
+    jr = jsdp.solve_sdp(jp, **kw)
+    tr = tsdp.solve_sdp(tp, device="cpu", **kw)
+    assert tr.iterations == jr.iterations == 3
+    assert tr.schur_stats == jr.schur_stats
+    assert tr.history == jr.history
+    for got, want in ((tr.x, jr.x), (tr.y, jr.y), (tr.z, jr.z)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=2.0 ** -100 * np.abs(want).max())
+
+
+def test_binary128_narrow_step_equals_eager_reference():
+    # one whole interior-point step on the narrow plan (the Cholesky
+    # factors, the Schur stacks on kernel #2, the refined Schur solve, the
+    # step lengths) against the reference run eagerly, where every
+    # operation rounds on its own as the port's do: X, y, Z as the solvers
+    # return them, bit for bit.
+    # chip_smoke.py phase 10 holds theta1's whole history to the same
+    # eager reference on the card; eagerly a step takes about a minute
+    # here, so the CPU checks one
+    jp, tp = _problems("rand6x4")
+    kw = dict(precision="binary128", max_iters=1, gemm_overrides={
+        "backend": "ozaki-pallas", "slice_dtype": "bfloat16",
+        "acc_dtype": "float32"})
+    with jax.disable_jit():
+        jr = jsdp.solve_sdp(jp, **kw)
+    tr = tsdp.solve_sdp(tp, device="cpu", **kw)
+    assert tr.history == jr.history
+    assert tr.schur_stats == jr.schur_stats
+    for got, want in ((tr.x, jr.x), (tr.y, jr.y), (tr.z, jr.z)):
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))

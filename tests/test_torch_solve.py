@@ -19,6 +19,7 @@ from repro.core.linalg import lu_solve as jlu_solve
 from repro.core.linalg import rgetrf as jrgetrf
 from repro.solve import rgesv as jrgesv
 from repro.solve import rposv as jrposv
+from repro_torch import gemm as tgemm
 from repro_torch.core import dd as tdd
 from repro_torch.core import mp as tmp
 from repro_torch.core.accuracy import (GATES, frac_matmul, frac_matrix,
@@ -43,8 +44,10 @@ def _hermetic(tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jgemm.set_default_cache(jgemm.PlanCache(str(tmp_path / "plans.json")))
+    tgemm.set_default_cache(tgemm.PlanCache(str(tmp_path / "t.json")))
     yield
     jgemm.set_default_cache(None)
+    tgemm.set_default_cache(None)
     torch.set_num_threads(threads)
 
 
@@ -239,3 +242,27 @@ def test_rposv_f64_cholesky_breakdown_escalates_like_reference():
     assert info.backward_errors[1] == float("inf")
     assert [(e["iteration"], e["from"], e["to"]) for e in info.escalations] \
         == [(e["iteration"], e["from"], e["to"]) for e in jinfo.escalations]
+
+
+@pytest.mark.parametrize("precision", ["dd", "td"])
+def test_rpotrf_and_cholesky_solve_equal_eager_reference(precision):
+    # the masked full-length sums of the reference's _potrf/_trsm: the
+    # halving tree of mp.sum_ pairs terms by position, so summing only the
+    # solved prefix rounded differently from column 5 on (n = 8 covers it)
+    import jax
+    from repro.core import linalg as jlin
+    from repro_torch.core.linalg import cholesky_solve
+
+    rng = np.random.default_rng(21)
+    g = rng.standard_normal((8, 8))
+    a_np = g @ g.T + 8 * np.eye(8)
+    b_np = rng.standard_normal((8, 2))
+    a = tmp.from_float(torch.as_tensor(a_np), precision)
+    b = tmp.from_float(torch.as_tensor(b_np), precision)
+    ja, jb = (jmp.from_float(jnp.asarray(x), precision) for x in (a_np, b_np))
+    with jax.disable_jit():
+        jl = jlin.rpotrf(ja)
+        jx = jlin.cholesky_solve(jl, jb)
+    for got, want in ((rpotrf(a), jl), (cholesky_solve(rpotrf(a), b), jx)):
+        assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in
+                   zip(tmp.limbs(got), jmp.limbs(want)))
