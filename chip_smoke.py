@@ -9,7 +9,7 @@ run in the order 1-6, 8, 9, 10, 7, 11):
   1. the card (name and power limit from nvidia-smi) and the build of every
      hand-written kernel from csrc/ (nvcc, one process per source, limb
      count and narrow variant, all at once), with registers and spills per
-     kernel;
+     kernel, none allowed in the dd builds of kernel #2's two GEMMs;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
      kernel #1 (csrc/mlgemm.cu) at dd at 512^3, a ragged 509x263x131, the
      Hilbert gate's 32^3, an LU trailing update 1984x64x1984 and a residual
@@ -26,8 +26,15 @@ run in the order 1-6, 8, 9, 10, 7, 11):
      and the B-shared batch with the three epilogues, batched 5 x 70x40x66
      against looped, and an adversarial headroom case (all
      digits at their largest, bk = 16, dd) whose f32 diagonal sums must
-     equal the same dots in f64; the elementwise kernels (csrc/mpops.cu)
-     at every tier on the shapes of the SDP loop;
+     equal the same dots in f64; kernel #2's slicing pre-pass
+     (csrc/ozslice.cu) against its plain version for every slice type at
+     every tier on 509x263x131, the SDP stack and the B-shared batch; the
+     K-panel path (a workspace budget of one byte: one slab per panel) on
+     the same shapes for f64 and bf16/f32 slices at every tier; the f64
+     adversarial headroom case on the DMMA kernel at dd and qd, whose f64
+     diagonal sums must equal the same dots summed exactly on the host;
+     the elementwise kernels (csrc/mpops.cu) at every tier on the shapes
+     of the SDP loop;
   3. the first main path, with every launch counter set to 0 first: dd
      Rgemm C = alpha*A@B + beta*C at n = 4096 through rgemm on backend
      ozaki-pallas (kernel #2, fused drain) and on pallas (kernel #1), the
@@ -76,7 +83,10 @@ run in the order 1-6, 8, 9, 10, 7, 11):
      plain versions there too, held bit for bit again), the td/qd kernels
      at 2048^3 (plain versions at 256^3), the narrow variants at the same
      shapes with the epilogue full (plain versions at 512^3 and 256^3, held
-     bit for bit again), the elementwise kernels on the SDP's pairwise
+     bit for bit again) and the bf16/f32 dd one on the SDP stack; kernel
+     #2 timed as one call, and its pre-pass and GEMM apart, its bound the
+     larger of the pair dots on their unit (DMMA for f64 slices) and the
+     f64 work; the elementwise kernels on the SDP's pairwise
      product, and (as context only: no PyTorch call computes a multi-limb
      GEMM) an f64 torch.matmul, or a bf16 one beside the narrow variants,
      at the same shapes;
@@ -89,7 +99,8 @@ The port's plan cache points at a fresh file under build/ for the whole
 run (REPRO_TORCH_GEMM_CACHE), so no tuned entry on the machine can change
 the bits that the gates read.
 
-The last two lines are a JSON object {"kernels": [...]} and
+The last two lines are a JSON object {"kernels": [...]} (the pre-pass's
+rows, ozslice_dd/td/qd, among them) and
 {"ok": true, "device": {...}}.  Without CUDA, or without the repository's
 src/repro_torch beside it, the script exits non-zero and prints neither.
 """
@@ -114,6 +125,8 @@ NLIMBS = {"dd": 2, "td": 3, "qd": 4}
 # the bounds count instructions against that rate.  And HBM3 bandwidth.
 F64_PEAK = 34e12
 F64_INSTR_PER_S = F64_PEAK / 2
+# the f64 tensor cores (DMMA): 67 TFLOP/s, an FMA being two flops
+DMMA_FMA_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 # f64 add/sub/mul operations per dd FMA in csrc/mlgemm.cu's inner loop
 MLGEMM_OPS_PER_FMA = 51
@@ -126,9 +139,10 @@ DD_MUL_OPS, DD_ADD_OPS = 31, 20
 # narrow variants' pair dots; FFMA issues at half the 67 TFLOP/s f32 rate
 BF16_TC_PEAK = 989e12
 F32_INSTR_PER_S = 67e12 / 2
-# per slice element in csrc/ozgemm_narrow.cu's normalization (two DMULs)
-# and per output per diagonal in its rescale (three DMULs)
-NARROW_NORM_OPS, NARROW_RESCALE_OPS = 2, 3
+# per slice element in csrc/ozslice.cu's normalization (two DMULs), per
+# output per diagonal in csrc/ozgemm_narrow.cu's rescale (two DMULs), and
+# per output per slab its sc_a * sc_b (one)
+NARROW_NORM_OPS, NARROW_RESCALE_OPS = 2, 2
 # the narrow plans of phase 10: the TPU kernel's own configuration
 NARROW = {"slice_dtype": "bfloat16", "acc_dtype": "float32"}
 NARROW_PAIRS = (("bfloat16", "float32"), ("float32", "float32"),
@@ -180,26 +194,28 @@ def log(msg):
     print(msg, flush=True)
 
 
-def headroom_operand(shape, beta, seed, device):
-    """All-positive dd values in [1, 2) whose every slice digit (of the
+def headroom_operand(shape, beta, seed, device, p="dd"):
+    """All-positive tier values in [1, 2) whose every slice digit (of the
     anchor ladder at slab depth 16) is 2^(beta-1) - 1 or one less: the
     largest all-positive digits round-to-nearest slicing leaves."""
     import numpy as np
     import torch
-    from repro_torch.core import dd
+    from repro_torch.core import mp
 
     rng = np.random.default_rng(seed)
     top = 2 ** (beta - 1) - 1
-    n_digits = 1 + (106 - (beta - 1)) // beta  # what two f64 limbs hold
-    hi, lo = np.empty(shape), np.empty(shape)
+    k = NLIMBS[p]
+    n_digits = 1 + (53 * k - (beta - 1)) // beta  # what k f64 limbs hold
+    limbs = [np.empty(shape) for _ in range(k)]
     for idx in np.ndindex(*shape):
         v = sum(Fraction(top - int(rng.integers(0, 2)) * (i > 0),
                          2 ** (i * beta)) for i in range(n_digits))
         v *= Fraction(2 ** 2, 2 ** beta)
-        hi[idx] = float(v)
-        lo[idx] = float(v - Fraction(hi[idx]))
-    return dd.from_hi_lo(torch.as_tensor(hi, device=device),
-                         torch.as_tensor(lo, device=device))
+        for l in limbs:
+            l[idx] = float(v)
+            v -= Fraction(l[idx])
+    return mp.from_limbs([torch.as_tensor(l, device=device)
+                          for l in limbs])
 
 
 def check(ok, what):
@@ -228,6 +244,7 @@ def ptxas_summary(text):
 
 def main() -> int:
     t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -256,19 +273,26 @@ def main() -> int:
     from repro_torch.core.ozaki import (_extract_slices, _normalize_slices,
                                         diagonal_sums, slice_params)
     from repro_torch.gemm import autotune, default_cache, make_plan, matmul
-    from repro_torch.kernels import _build, mlgemm, mpops, ozgemm
+    from repro_torch.kernels import _build, mlgemm, mpops, ozgemm, ozslice
     from repro_torch.solve import rgesv
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(20230607)
     counters = {"mlgemm": mlgemm.launches, "ozgemm": ozgemm.launches,
-                "mpops": mpops.launches}
+                "ozslice": ozslice.launches, "mpops": mpops.launches}
 
     def reset_counts():
         for c in counters.values():
             for k in c:
                 c[k] = 0
+        ozgemm.launch_shapes.clear()
+
+    def shape_counts():
+        """Kernel #2's GEMM launches since the last reset, by (kernel,
+        batch x m x k x n), most first."""
+        return {f"{key} {'x'.join(map(str, shp))}": cnt for (key, shp), cnt
+                in ozgemm.launch_shapes.most_common()}
 
     def read_counts():
         return {name: dict(c) for name, c in counters.items()}
@@ -317,6 +341,10 @@ def main() -> int:
         for kern, regs, st, ld in ptxas_summary(text):
             log(f"phase 1: {name} k={nl} {kern}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
+            # kernel #2's redesigned GEMMs at dd (f64 and bf16/f32 slices)
+            check(not (nl == 2 and name in ("ozgemm", "ozgemm_narrow:0")
+                       and st + ld > 0),
+                  f"{name} k={nl} {kern} spills {st} + {ld} B")
     # kernel #2's shared memory as the sources count it, against the
     # wrapper's count (which refuses what a block cannot hold)
     for nl in _build.LIMBS:
@@ -537,6 +565,94 @@ def main() -> int:
         f"(exact) value; largest {top:.0f} grid units = "
         f"2^{torch.log2(torch.tensor(top)).item():.2f} of the 2^24 headroom")
     check(top > 2 ** 21, "the headroom case did not fill the f32 sums")
+    # kernel #2's pre-pass (csrc/ozslice.cu) on the operands phase 2 gives
+    # the GEMMs, every slice type at every tier: slices and scales bit for
+    # bit; then the K-panel path, a one-byte workspace budget walking K one
+    # slab per panel (the accumulator carried in the output), against the
+    # plain version in one panel
+    def hold_ws(key, label, got, want):
+        same = all((g is None and w is None) or (
+            g.shape == w.shape and torch.equal(g, w))
+            for g, w in zip(got, want))
+        err = float(torch.max(torch.abs(got[0].double() - want[0].double())))
+        max_err[key] = max(max_err.get(key, 0.0), err)
+        log(f"phase 2: {key} {label} kernel == plain: {same} (max abs diff "
+            f"{err:.3e})")
+        check(same, f"{key} {label} differs from its plain version")
+
+    for p in ("dd", "td", "qd"):
+        alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
+        for label, a, b, c in [
+                ("509x263x131", rand_tier((509, 263), p),
+                 rand_tier((263, 131), p), rand_tier((509, 131), p)),
+                ("SDP stack 99 x 50x50x50 (A shared)", rand_tier((50, 50), p),
+                 rand_tier((99, 50, 50), p), None),
+                ("batched 6 x 96x80x72 (B shared)", rand_tier((6, 96, 80), p),
+                 rand_tier((80, 72), p), rand_tier((6, 96, 72), p))]:
+            m, k = a.shape[-2:]
+            n = b.shape[-1]
+            for (sdt, adt), v in ozgemm.SLICE_PAIRS.items():
+                plan, pkw = oz_plan_kw(m, k, n, p, sdt, adt)
+                kw = dict(bk=plan.bk, beta=plan.slice_beta,
+                          n_slices=plan.n_slices, variant=v)
+                for x, rows, what in ((a, True, "A"), (b, False, "B")):
+                    hold_ws(f"ozslice_{p}", f"{label} {what} {sdt}/{adt} "
+                            f"(bk={plan.bk}, n_slices={plan.n_slices})",
+                            ozslice.ozslice_call(mp.limbs(x), rows=rows,
+                                                 **kw),
+                            ozslice.ozslice_plain(x, rows=rows, **kw))
+                if (sdt, adt) not in (("float64", "float64"),
+                                      NARROW_PAIRS[0]):
+                    continue
+                epi = "none" if c is None else "full"
+                ops, ekw = oz_operands(a, b, epi, alpha, beta, c)
+                hold(f"ozgemm_{p}" if v is None else narrow_name(p, sdt, adt),
+                     f"{label} K panels of one slab ({-(-k // plan.bk)}) "
+                     f"epilogue={epi}",
+                     ozgemm.ozgemm_kernel_call(*ops, epilogue=epi,
+                                               workspace_bytes=1, **pkw),
+                     ozgemm.ozgemm_plain(a, b, **ekw, **pkw))
+    # the f64 adversarial headroom case on the DMMA kernel: every slice
+    # digit at its largest, so the f64 diagonal sums come as near their 53
+    # bits as slicing lets them (dd: 2*beta + 4 + 3 = 53; qd: 52); the
+    # kernel equals the plain version, and the plain version's f64 sums
+    # equal the same slice dots summed on the host with a 64-bit
+    # significand (np.longdouble), where they are exact
+    for p in ("dd", "qd"):
+        plan, pkw = oz_plan_kw(128, 64, 128, p)
+        bt, ns = plan.slice_beta, plan.n_slices
+        check(plan.bk == 16, f"the f64 headroom case's plan {plan}")
+        a = headroom_operand((128, 64), bt, 1, dev, p)
+        b = headroom_operand((64, 128), bt, 2, dev, p)
+        hold(f"ozgemm_{p}", f"headroom 128x64x128 on DMMA (digits "
+             f"2^(beta-1) - 1, beta={bt}, n_slices={ns})",
+             ozgemm.ozgemm_kernel_call(*mp.limbs(a), *mp.limbs(b), **pkw),
+             ozgemm.ozgemm_plain(a, b, **pkw))
+        sk = dict(bk=16, beta=bt, n_slices=ns)
+        wa, _ = ozslice.ozslice_plain(a, rows=True, **sk)
+        wb, _ = ozslice.ozslice_plain(b, rows=False, **sk)
+        top = 0.0
+        for j in range(4):
+            sa = [wa[0, j, i] for i in range(ns)]
+            sb = [wb[0, j, i].T for i in range(ns)]
+            ha = [x.cpu().numpy().astype(np.longdouble) for x in sa]
+            hb = [x.cpu().numpy().astype(np.longdouble) for x in sb]
+            for d, f64 in diagonal_sums(sa, sb, ns, False, torch.float64):
+                exact = sum(ha[i] @ hb[d - i]
+                            for i in range(max(0, d - ns + 1),
+                                           min(d, ns - 1) + 1))
+                check(np.array_equal(
+                    f64.cpu().numpy().astype(np.longdouble), exact),
+                      f"{p} f64 headroom diagonal {d} of slab {j}: the f64 "
+                      f"sum is not the exact one")
+                # grid units: slice 0 of [1, 2) sits on 2^(1-beta)
+                top = max(top, float(np.abs(exact).max())
+                          * 2.0 ** (2 * bt - 2 + d * bt))
+        log(f"phase 2: f64 headroom case {p}: every f64 diagonal sum equals "
+            f"its exact value; largest {top:.0f} grid units = "
+            f"2^{np.log2(top):.2f} of the 2^53 headroom")
+        check(top > 2 ** 50, f"the {p} headroom case did not fill the f64 "
+              f"sums")
     # the elementwise kernels on the SDP loop's shapes: a Cholesky column
     # (div by a broadcast pivot), a triangular-solve row (a broadcast row
     # times a block), the pairwise product (4-D broadcast), the sums
@@ -659,6 +775,7 @@ def main() -> int:
           "the ill-conditioned rgesv did not converge through a dd rgetrf")
     path1 = read_counts()
     log(f"phase 3-6: kernel launches on the first main path: {path1}")
+    log(f"phase 3-6: kernel #2's GEMM launches by shape: {shape_counts()}")
     check(path1["mlgemm"][2] > 0 and path1["ozgemm"][2] > 0
           and path1["mpops"][2] > 0,
           "a dd kernel of the first main path never launched")
@@ -762,6 +879,7 @@ def main() -> int:
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     path2 = read_counts()
     log(f"phase 8-9: kernel launches on the second main path: {path2}")
+    log(f"phase 8-9: kernel #2's GEMM launches by shape: {shape_counts()}")
     check(all(path2[name][k] > 0 for name in counters for k in (3, 4)),
           "a td/qd kernel of the second main path never launched")
 
@@ -869,7 +987,9 @@ def main() -> int:
     narrow_runs["sdp_theta1_binary128"]["history"] = hist
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
     path10 = read_counts()
+    stack_counts = dict(ozgemm.launch_shapes)
     log(f"phase 10: kernel launches on the narrow path: {path10}")
+    log(f"phase 10: kernel #2's GEMM launches by shape: {shape_counts()}")
     check(all(path10["ozgemm"][nl, v] > 0 for nl in _build.LIMBS
               for v in ozgemm.VARIANTS.values()),
           "a narrow variant of kernel #2 never launched on its path")
@@ -901,38 +1021,136 @@ def main() -> int:
                note="", launches=None, extra=None):
         key = name.split("_")[0]
         k = NLIMBS[name.split("_")[1]]
+        if extra is None:
+            extra = {"context_f64_matmul_ms": f64_ms}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": path1[key][k] + path2[key][k] if launches is None
             else launches,
-            "max_abs_err": max_err.get(name, 0.0), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": None, "shape": shape,
-            **(extra or {"context_f64_matmul_ms": f64_ms})})
-        what = "bf16" if extra else "f64"
+            "max_abs_err": max_err.get(name.replace("_sdp_stack", ""), 0.0),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None, "shape": shape, **extra})
+        ctx = "".join(f"; {c[8:-3].replace('_', ' ')} (context only) "
+                      f"{v:.3f} ms" for c, v in extra.items()
+                      if c.startswith("context_"))
         log(f"phase 7: {name} at {shape}: {ms:.2f} ms (bound {b[0]:.2f} ms "
             f"by {b[1]}, {b[0] / ms:.1%} of it), plain version "
-            f"{plain_ms:.1f} ms{note}; {what} torch.matmul (context only) "
-            f"{f64_ms:.3f} ms")
+            f"{plain_ms:.1f} ms{note}{ctx}")
 
     ml_src, ml_rep = ("src/repro_torch/csrc/mlgemm.cu",
                       "src/repro/kernels/mlgemm.py:90")
     oz_src, oz_rep = ("src/repro_torch/csrc/ozgemm.cu",
                       "src/repro/kernels/ozgemm.py:170")
+    nz_src, nz_rep = ("src/repro_torch/csrc/ozgemm_narrow.cu",
+                      "src/repro/kernels/ozgemm.py:78")
+    sl_src, sl_rep = ("src/repro_torch/csrc/ozslice.cu",
+                      "src/repro/kernels/ozgemm.py:81")
+
+    def oz_times(a, b, ops, pkw, reps):
+        """Kernel #2 at one shape, epilogue full: (one call, the pre-pass of
+        both operands, the GEMM alone) in ms."""
+        v = ozgemm.SLICE_PAIRS[pkw["slice_dtype_name"],
+                               pkw["acc_dtype_name"]]
+        kw = dict(bk=pkw["bk"], beta=pkw["beta"], n_slices=pkw["n_slices"],
+                  variant=v)
+        nl = len(mp.limbs(a))
+        la, lb = list(mp.limbs(a)), list(mp.limbs(b))
+
+        def prepass():
+            return (ozslice.ozslice_call(la, rows=True, **kw),
+                    ozslice.ozslice_call(lb, rows=False, **kw))
+
+        one = event_ms(lambda: ozgemm.ozgemm_kernel_call(
+            *ops, epilogue="full", **pkw), reps)
+        pre = event_ms(prepass, reps)
+        ws = prepass()
+        _, _, alpha_l, beta_l, c_l = ozgemm._split_operands(ops, "full")[1:]
+        gemm = event_ms(lambda: ozgemm._launch(
+            nl, la, lb, alpha_l, beta_l, c_l, None, bk=kw["bk"],
+            beta=kw["beta"], n_slices=kw["n_slices"], n_diag=kw["n_slices"],
+            epi="full", variant=v, workspaces=ws), reps)
+        del ws
+        return one, pre, gemm
+
+    def oz_bound(n, k, plan, sdt, adt):
+        """Kernel #2's least time at n^3, epilogue full: the larger of the
+        pair dots on their unit and the f64 work (the pre-pass's
+        extraction, normalization, rescale, folds, epilogue) or the bytes;
+        returns (bound, by, dots ms, f64 ms)."""
+        s_n, mnk = plan.n_slices, n ** 3
+        dots = mnk * pairs(s_n)  # multiply-adds of the pair dots
+        narrow = sdt != "float64"
+        slice_ops = OZGEMM_OPS_PER_SLICE if k == 2 else 3 + add_ops(k)
+        fold_ops = ADD_FLOAT_OPS if k == 2 else renorm_ops(k + 1, k)
+        pre_ops = 2 * n * n * s_n * (slice_ops
+                                     + (NARROW_NORM_OPS if narrow else 0))
+        slabs = n * n * (n // plan.bk)
+        f64_ops = (pre_ops
+                   + slabs * (s_n * (fold_ops + (NARROW_RESCALE_OPS
+                                                 if narrow else 0))
+                              + (1 if narrow else 0))
+                   + n * n * (2 * tier_mul_ops(k) + add_ops(k)))
+        if adt == "float64" and narrow:
+            f64_ops += dots  # DFMA on the widened slices
+            dot_ms = 0.0
+        elif not narrow:
+            dot_ms = dots / DMMA_FMA_PER_S * 1e3
+        elif sdt == "bfloat16":
+            dot_ms = 2 * dots / BF16_TC_PEAK * 1e3
+        else:
+            dot_ms = dots / F32_INSTR_PER_S * 1e3
+        b = bound(f64_ops, 8 * k * 4 * n * n + 8 * 2 * k)
+        by = "operations" if dot_ms >= b[0] else b[1]
+        return (max(b[0], dot_ms), by, dot_ms,
+                f64_ops / F64_INSTR_PER_S * 1e3)
+
+    def oz_record(name, source, replaces, n, k, plan, sdt, adt, times,
+                  plain_ms, shape, context_ms, note, launches):
+        one, pre, gemm = times
+        b, by, dot_ms, f64_ms = oz_bound(n, k, plan, sdt, adt)
+        ctx = "context_f64_matmul_ms" if sdt == "float64" \
+            else "context_bf16_matmul_ms"
+        record(name, source, replaces, one, plain_ms, (b, by), shape,
+               context_ms, f"{note}; pre-pass {pre:.2f} ms + GEMM "
+               f"{gemm:.2f} ms; bound parts: dots {dot_ms:.2f} ms, f64 "
+               f"{f64_ms:.2f} ms", launches=launches,
+               extra={ctx: context_ms, "bound_dots_ms": dot_ms,
+                      "bound_f64_ms": f64_ms, "prepass_ms": pre,
+                      "gemm_ms": gemm,
+                      "slices": [plan.slice_beta, plan.n_slices]})
+
+    def slice_record(p, n, plan, pre_ms):
+        """The pre-pass's row: both operands' f64 slices at n^3."""
+        k, s_n = NLIMBS[p], plan.n_slices
+        a_s, b_s = (rand_tier((n, n), p) for _ in range(2))
+        kw = dict(bk=plan.bk, beta=plan.slice_beta, n_slices=s_n)
+        for x, rows in ((a_s, True), (b_s, False)):
+            hold_ws(f"ozslice_{p}", f"{n}x{n} {'A' if rows else 'B'} f64",
+                    ozslice.ozslice_call(mp.limbs(x), rows=rows, **kw),
+                    ozslice.ozslice_plain(x, rows=rows, **kw))
+        _, t = sync_time(lambda: (ozslice.ozslice_plain(a_s, rows=True, **kw),
+                                  ozslice.ozslice_plain(b_s, rows=False,
+                                                        **kw)))
+        slice_ops = OZGEMM_OPS_PER_SLICE if k == 2 else 3 + add_ops(k)
+        b = bound(2 * n * n * s_n * slice_ops,
+                  2 * n * n * (8 * k + 8 * s_n))
+        record(f"ozslice_{p}", sl_src, sl_rep, pre_ms, t * 1e3, b, [n, n],
+               0.0, " (both operands, f64 slices)",
+               launches=path1["ozslice"][k] + path2["ozslice"][k]
+               + path10["ozslice"][k], extra={"slices": [plan.slice_beta,
+                                                         s_n]})
+        del a_s, b_s
+
     # the dd kernels at the first path's Rgemm shape, plain versions there
     n = 4096
     A, B, C = rand_dd(n, n), rand_dd(n, n), rand_dd(n, n)
     alpha, beta = scalar(1, 3), scalar(-1, 7)
-    plan = make_plan(n, n, n, backend="ozaki-pallas", platform="cuda")
-    oz_ops = [*mp.limbs(A), *mp.limbs(B),
-              *[l.reshape(1, 1) for l in mp.limbs(alpha)],
-              *[l.reshape(1, 1) for l in mp.limbs(beta)], *mp.limbs(C)]
-    oz_kw = dict(bk=plan.bk, beta=plan.slice_beta, n_slices=plan.n_slices,
-                 epilogue="full")
+    plan, pkw = oz_plan_kw(n, n, n, "dd")
+    oz_ops, _ = oz_operands(A, B, "full", alpha, beta, C)
     ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
         *mp.limbs(A), *mp.limbs(B)), 3)
-    oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(*oz_ops, **oz_kw), 3)
+    oz_t = oz_times(A, B, oz_ops, pkw, 3)
     want, t = sync_time(lambda: mlgemm.mlgemm_plain(A, B))
     ml_plain_ms = t * 1e3
     same, err = compare("mlgemm_dd", mlgemm.mlgemm_kernel_call(
@@ -945,25 +1163,21 @@ def main() -> int:
         n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=C))
     oz_plain_ms = t * 1e3
     same, err = compare("ozgemm_dd", ozgemm.ozgemm_kernel_call(
-        *oz_ops, **oz_kw), want)
+        *oz_ops, epilogue="full", **pkw), want)
     log(f"phase 7: ozgemm_dd {n}^3 epilogue=full kernel == plain: {same} "
         f"(max abs diff {err:.3e})")
     check(same, f"ozgemm_dd {n}^3 differs from its plain version")
     del want
     f64_ms = event_ms(lambda: torch.matmul(A.hi, B.hi), 5)
     mnk = n ** 3
-    s = plan.n_slices
     record("mlgemm_dd", ml_src, ml_rep, ml_ms, ml_plain_ms,
            bound(mnk * MLGEMM_OPS_PER_FMA, 8 * 2 * 3 * n * n), [n, n, n],
            f64_ms)
-    record("ozgemm_dd", oz_src, oz_rep, oz_ms, oz_plain_ms,
-           bound(mnk * pairs(s)
-                 + 2 * n * n * s * OZGEMM_OPS_PER_SLICE
-                 + n * n * (n // plan.bk) * s * ADD_FLOAT_OPS
-                 + n * n * (2 * DD_MUL_OPS + DD_ADD_OPS),
-                 8 * 2 * 4 * n * n + 8 * 4), [n, n, n], f64_ms,
-           " (epilogue full)")
+    oz_record("ozgemm_dd", oz_src, oz_rep, n, 2, plan, "float64", "float64",
+              oz_t, oz_plain_ms, [n, n, n], f64_ms, " (epilogue full)",
+              path1["ozgemm"][2] + path2["ozgemm"][2])
     del A, B, C, oz_ops
+    slice_record("dd", n, plan, oz_t[1])
 
     # the td/qd kernels at 2048^3, their plain versions at 256^3
     n, n_plain = 2048, 256
@@ -971,17 +1185,11 @@ def main() -> int:
         k = NLIMBS[p]
         A, B, C = (rand_tier((n, n), p) for _ in range(3))
         alpha, beta = scalar(1, 3, p), scalar(-1, 7, p)
-        plan = make_plan(n, n, n, precision=p, backend="ozaki-pallas",
-                         platform="cuda")
-        oz_ops = [*mp.limbs(A), *mp.limbs(B),
-                  *[l.reshape(1, 1) for l in mp.limbs(alpha)],
-                  *[l.reshape(1, 1) for l in mp.limbs(beta)], *mp.limbs(C)]
-        oz_kw = dict(bk=plan.bk, beta=plan.slice_beta,
-                     n_slices=plan.n_slices, epilogue="full")
+        plan, pkw = oz_plan_kw(n, n, n, p)
+        oz_ops, _ = oz_operands(A, B, "full", alpha, beta, C)
         ml_ms = event_ms(lambda: mlgemm.mlgemm_kernel_call(
             *mp.limbs(A), *mp.limbs(B)), 2)
-        oz_ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(
-            *oz_ops, **oz_kw), 2)
+        oz_t = oz_times(A, B, oz_ops, pkw, 2)
         f64_ms = event_ms(lambda: torch.matmul(mp.limbs(A)[0],
                                                mp.limbs(B)[0]), 5)
         a_s, b_s, c_s = (rand_tier((n_plain, n_plain), p) for _ in range(3))
@@ -992,27 +1200,19 @@ def main() -> int:
             n_slices=plan.n_slices, alpha=alpha, beta_s=beta, c=c_s))
         oz_plain_ms = t * 1e3
         mnk = n ** 3
-        s = plan.n_slices
         note = f" at {n_plain}^3"
         record(f"mlgemm_{p}", ml_src, ml_rep, ml_ms, ml_plain_ms,
                bound(mnk * fma_ops(k), 8 * k * 3 * n * n), [n, n, n],
                f64_ms, note)
-        record(f"ozgemm_{p}", oz_src, oz_rep, oz_ms, oz_plain_ms,
-               bound(mnk * pairs(s)
-                     + 2 * n * n * s * (3 + add_ops(k))
-                     + n * n * (n // plan.bk) * s * renorm_ops(k + 1, k)
-                     + n * n * (2 * mul_ops(k) + add_ops(k)),
-                     8 * k * 4 * n * n + 8 * 2 * k), [n, n, n], f64_ms,
-               note + ", epilogue full")
+        oz_record(f"ozgemm_{p}", oz_src, oz_rep, n, k, plan, "float64",
+                  "float64", oz_t, oz_plain_ms, [n, n, n], f64_ms,
+                  note + ", epilogue full",
+                  path1["ozgemm"][k] + path2["ozgemm"][k])
         del A, B, C, oz_ops
+        slice_record(p, n, plan, oz_t[1])
 
     # the narrow variants at the same shapes, epilogue full; their plain
-    # versions at 512^3 (dd) and 256^3 (td/qd), held bit for bit again.
-    # Bound: the larger of the pair dots on their unit (bf16 tensor cores,
-    # FFMA, or DFMA counted with the f64 work) and the f64 instructions of
-    # extraction, normalization, rescale, folds and epilogue
-    nz_src, nz_rep = ("src/repro_torch/csrc/ozgemm_narrow.cu",
-                      "src/repro/kernels/ozgemm.py:78")
+    # versions at 512^3 (dd) and 256^3 (td/qd), held bit for bit again
     for p, n, n_plain in (("dd", 4096, 512), ("td", 2048, 256),
                           ("qd", 2048, 256)):
         k = NLIMBS[p]
@@ -1024,13 +1224,10 @@ def main() -> int:
         a16, b16 = mp.limbs(A)[0].bfloat16(), mp.limbs(B)[0].bfloat16()
         bf16_ms = event_ms(lambda: torch.matmul(a16, b16), 5)
         del a16, b16
-        slice_ops = OZGEMM_OPS_PER_SLICE if k == 2 else 3 + add_ops(k)
-        fold_ops = ADD_FLOAT_OPS if k == 2 else renorm_ops(k + 1, k)
         for sdt, adt in NARROW_PAIRS:
             name = narrow_name(p, sdt, adt)
             plan, pkw = oz_plan_kw(n, n, n, p, sdt, adt)
-            ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(
-                *ops, epilogue="full", **pkw), 2)
+            times = oz_times(A, B, ops, pkw, 2)
             _, pkw_s = oz_plan_kw(n_plain, n_plain, n_plain, p, sdt, adt)
             want, t = sync_time(lambda: ozgemm.ozgemm_plain(
                 a_s, b_s, **kw_s, **pkw_s))
@@ -1039,31 +1236,41 @@ def main() -> int:
             log(f"phase 7: {name} {n_plain}^3 epilogue=full kernel == "
                 f"plain: {same} (max abs diff {err:.3e})")
             check(same, f"{name} {n_plain}^3 differs from its plain version")
-            s_n, mnk = plan.n_slices, n ** 3
-            dots = mnk * pairs(s_n)  # multiply-adds of the pair dots
-            f64_ops = (2 * n * n * s_n * (slice_ops + NARROW_NORM_OPS)
-                       + n * n * (n // plan.bk) * s_n
-                       * (fold_ops + NARROW_RESCALE_OPS)
-                       + n * n * (2 * tier_mul_ops(k) + add_ops(k)))
-            if adt == "float64":
-                f64_ops += dots
-                dot_ms = 0.0
-            elif sdt == "bfloat16":
-                dot_ms = 2 * dots / BF16_TC_PEAK * 1e3
-            else:
-                dot_ms = dots / F32_INSTR_PER_S * 1e3
-            b = bound(f64_ops, 8 * k * 4 * n * n + 8 * 2 * k)
-            b = (max(b[0], dot_ms), b[1])
-            record(name, nz_src, nz_rep, ms, t * 1e3, b, [n, n, n], bf16_ms,
-                   f" at {n_plain}^3, epilogue full, bound parts: dots "
-                   f"{dot_ms:.2f} ms, f64 {f64_ops / F64_INSTR_PER_S * 1e3:.2f}"
-                   f" ms", launches=path10["ozgemm"][
-                       k, ozgemm.VARIANTS[ozgemm.SLICE_PAIRS[sdt, adt]]],
-                   extra={"context_bf16_matmul_ms": bf16_ms,
-                          "bound_dots_ms": dot_ms,
-                          "bound_f64_ms": f64_ops / F64_INSTR_PER_S * 1e3,
-                          "slices": [plan.slice_beta, plan.n_slices]})
+            oz_record(name, nz_src, nz_rep, n, k, plan, sdt, adt, times,
+                      t * 1e3, [n, n, n], bf16_ms,
+                      f" at {n_plain}^3, epilogue full",
+                      path10["ozgemm"][
+                          k, ozgemm.VARIANTS[ozgemm.SLICE_PAIRS[sdt, adt]]])
         del A, B, C, ops, ops_s
+    # the bf16/f32 dd kernel on the SDP's Schur stack, where phase 10
+    # launched it most: X @ (A_j Z^-1), 99 x 50x50x50 with X shared,
+    # epilogue none; bound: the same count at this shape
+    a, b = rand_tier((50, 50), "dd"), rand_tier((99, 50, 50), "dd")
+    plan, pkw = oz_plan_kw(50, 50, 50, "dd", *NARROW_PAIRS[0])
+    ms = event_ms(lambda: ozgemm.ozgemm_kernel_call(
+        *mp.limbs(a), *mp.limbs(b), **pkw), 20)
+    want, t = sync_time(lambda: ozgemm.ozgemm_plain(a, b, **pkw))
+    name = narrow_name("dd", *NARROW_PAIRS[0])
+    hold(name, "SDP stack 99 x 50x50x50 (A shared), timed", ozgemm.
+         ozgemm_kernel_call(*mp.limbs(a), *mp.limbs(b), **pkw), want)
+    s_n, entries = plan.n_slices, 99 * 50 * 50
+    dot_ms = 2 * 50 * entries * pairs(s_n) / BF16_TC_PEAK * 1e3
+    f64_ops = ((50 * 50 + entries) * s_n
+               * (OZGEMM_OPS_PER_SLICE + NARROW_NORM_OPS)
+               + entries * -(-50 // plan.bk) * (s_n * (ADD_FLOAT_OPS
+                                                       + NARROW_RESCALE_OPS)
+                                                + 1))
+    b_ = bound(f64_ops, 8 * 2 * (50 * 50 + 2 * entries))
+    stack_n = sum(cnt for (key, shp), cnt in stack_counts.items()
+                  if key == (2, "bf16/f32") and shp == (99, 50, 50, 50))
+    record(f"{name}_sdp_stack", nz_src, nz_rep, ms, t * 1e3,
+           (max(b_[0], dot_ms), b_[1] if b_[0] >= dot_ms else "operations"),
+           [99, 50, 50, 50], 0.0, " (A shared, epilogue none)",
+           launches=stack_n,
+           extra={"bound_dots_ms": dot_ms,
+                  "bound_f64_ms": f64_ops / F64_INSTR_PER_S * 1e3,
+                  "slices": [plan.slice_beta, s_n]})
+    del a, b, want
 
     # the elementwise kernels on the SDP's pairwise product
     shape = [m_sdp, m_sdp, n_sdp, n_sdp]

@@ -1,9 +1,15 @@
-// Pieces shared by the two builds of kernel #2, the fused Ozaki-slice GEMM
-// (csrc/ozgemm.cu: f64 slices; csrc/ozgemm_narrow.cu: bf16/f32 slices):
-// the anchor, one slice step, the diagonal fold and the drain's epilogue,
-// each repeating the rounding sequence of the plain version
-// (repro_torch/kernels/ozgemm.py, core/ozaki.py) at KLIMBS limbs.
+// Pieces shared by the three builds of kernel #2, the fused Ozaki-slice
+// GEMM: the slicing pre-pass (csrc/ozslice.cu) and the two GEMMs on its
+// workspace (csrc/ozgemm.cu: f64 slices; csrc/ozgemm_narrow.cu: bf16/f32
+// slices).  The anchor, one slice step, the slice types, the workspace
+// geometry, the staged copy of one slab into shared memory, the diagonal
+// fold and the drain's epilogue, each repeating the rounding sequence of the
+// plain versions (repro_torch/kernels/ozslice.py, ozgemm.py,
+// core/ozaki.py) at KLIMBS limbs.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "dd_device.cuh"
 #include "ml_device.cuh"
@@ -18,32 +24,144 @@ constexpr int K = KLIMBS;
 
 enum Epilogue { kNone = 0, kAlpha = 1, kFull = 2 };
 
-// The CTA tile of both builds: 64 rows of A, 64 columns of B.
+// The GEMMs' launch flags for a K panel (kernels/ozgemm.py walks K in
+// panels when the workspace outgrows its budget): start from the partial
+// accumulator already in the output, and drain with the epilogue (the
+// last panel) rather than store the raw accumulator.
+enum PanelFlags { kLoadAcc = 1, kFinal = 2 };
+
+// The CTA tile of both GEMMs: 64 rows of A, 64 columns of B.
 constexpr int BM = 64, BN = 64;
 
-// The narrow variants (slice type / accumulator type); the numbering is the
+// Shared memory one Hopper block may opt in to.
+constexpr int kSmemLimit = 232448;
+
+// The slice types (slice type / accumulator type); the numbering is the
 // wrapper's.  kF64 is csrc/ozgemm.cu's f64-slice kernel.
 enum Variant { kF64 = -1, kBf16F32 = 0, kF32F32 = 1, kBf16F64 = 2, kF32F64 = 3 };
 
-// Bytes of one slice element in shared memory: f64; f32 for f32/f64; 16 bits
-// otherwise (bf16, or f16 for the <= 11-bit slices of f32/f32).
+// Bytes of one slice element in the workspace and in shared memory: f64;
+// f32 for f32/f64; 16 bits otherwise (bf16, or f16 for the <= 11-bit
+// slices of f32/f32).
 __host__ __device__ constexpr int elem_bytes(int v) {
   return v == kF64 ? 8 : v == kF32F64 ? 4 : 2;
 }
 
-// The row stride of a narrow slice in shared memory, in elements: the slab
-// depth rounded up to the MMA's 16, plus 8 so fragment loads hit 32 banks.
-__host__ __device__ constexpr int kstride(int bk) { return (bk + 15) / 16 * 16 + 8; }
+// The workspace's slab depth: bk rounded up to the MMA's depth (4 for the
+// f64 m8n8k4, 16 for bf16 m16n8k16), zero beyond bk.
+__host__ __device__ constexpr int kdepth(int bk, int v) {
+  return v == kF64 ? (bk + 3) / 4 * 4 : (bk + 15) / 16 * 16;
+}
 
-// Shared memory one CTA asks for: the slices of both tiles, then per row
-// and column the anchor and a nonzero flag, and with narrow slices also the
-// scale and its inverse.  The one count for both builds; the wrapper
-// (kernels/ozgemm.py smem_bytes) repeats it for CPU tensors, and
+// The row stride of a slice in shared memory, in elements: the slab depth
+// plus 32 bytes (f64) or 8 elements (narrow), so that the fragment loads
+// of eight rows take the fewest wavefronts.
+__host__ __device__ constexpr int kstride(int bk, int v) {
+  return kdepth(bk, v) + (v == kF64 ? 4 : 8);
+}
+
+// Rows (of A) or columns (of B) in the workspace: whole CTA tiles.
+__host__ __device__ constexpr int rows_padded(int r) { return (r + BM - 1) / BM * BM; }
+
+// One pipeline stage: one slab's slices of a CTA's 64 rows of A and 64
+// columns of B ([slice][row][kstride] each) and, for narrow slices, their
+// 64 + 64 scales.
+__host__ __device__ inline int stage_bytes(int bk, int n_slices, int variant) {
+  return n_slices * (BM + BN) * kstride(bk, variant) * elem_bytes(variant) +
+         (variant == kF64 ? 0 : (BM + BN) * (int)sizeof(double));
+}
+
+// Stages in flight: two (slab j + 1 lands while slab j is dotted and
+// folded) where two fit a block's shared memory, for the f64 and bf16/f32
+// kernels; one for the FMA variants, whose dot loops ran slower with two
+// on the H100.
+__host__ __device__ inline int stages(int bk, int n_slices, int variant) {
+  return (variant == kF64 || variant == kBf16F32) &&
+                 2 * stage_bytes(bk, n_slices, variant) <= kSmemLimit
+             ? 2
+             : 1;
+}
+
+// Shared memory one CTA asks for.  The one count for both GEMMs; the
+// wrapper (kernels/ozgemm.py smem_bytes) repeats it for CPU tensors, and
 // chip_smoke.py holds the two equal.
 inline int smem_bytes(int bk, int n_slices, int variant) {
-  const int ks = variant == kF64 ? bk : kstride(bk);
-  const int per_row = (variant == kF64 ? 1 : 3) * (int)sizeof(double) + (int)sizeof(bool);
-  return n_slices * (BM + BN) * ks * elem_bytes(variant) + (BM + BN) * per_row;
+  return stages(bk, n_slices, variant) * stage_bytes(bk, n_slices, variant);
+}
+
+// How each variant stores its slices: put() rounds an f64 as torch's .to()
+// does (f64 -> f32 -> bf16 / f16), exact on every slice.
+template <int V>
+struct Store;
+template <>
+struct Store<kF64> {
+  using T = double;
+  static __device__ __forceinline__ T put(double x) { return x; }
+};
+template <>
+struct Store<kBf16F32> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T put(double x) {
+    return __float2bfloat16_rn(__double2float_rn(x));
+  }
+};
+template <>
+struct Store<kBf16F64> : Store<kBf16F32> {};
+template <>
+struct Store<kF32F32> {
+  using T = __half;  // exact: beta <= 11 with an f32 accumulator
+  static __device__ __forceinline__ T put(double x) {
+    return __float2half_rn(__double2float_rn(x));
+  }
+};
+template <>
+struct Store<kF32F64> {
+  using T = float;
+  static __device__ __forceinline__ T put(double x) { return __double2float_rn(x); }
+};
+
+// 16-byte asynchronous copies, global -> shared, in commit groups.
+__device__ __forceinline__ void cp_async16(void *dst, const void *src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue the copies of one slab into one stage, spread over the block's
+// threads.  wa / wb point at the slab's first slice in the operand's
+// workspace (rows_padded(m) or rows_padded(n) rows of kp = kdepth elements
+// per slice), sca / scb at its scales (null for f64 slices).
+template <typename T>
+__device__ __forceinline__ void load_stage(unsigned char *stage, const T *wa,
+                                           const double *sca, const T *wb,
+                                           const double *scb, int kp, int ks,
+                                           int n_slices, int rpa, int rpb,
+                                           int row0, int col0) {
+  constexpr int per = 16 / (int)sizeof(T);  // elements per copy
+  const int cpr = kp / per;                 // copies per row
+  const int per_op = n_slices * BM * cpr;
+  for (int idx = threadIdx.x; idx < 2 * per_op; idx += blockDim.x) {
+    const bool is_b = idx >= per_op;
+    const int rem = is_b ? idx - per_op : idx;
+    const int s = rem / (BM * cpr), r = rem / cpr % BM, c = rem % cpr;
+    const T *src = is_b ? wb + ((size_t)s * rpb + col0 + r) * kp
+                        : wa + ((size_t)s * rpa + row0 + r) * kp;
+    cp_async16(stage + ((size_t)((is_b ? n_slices : 0) + s) * BM + r) * ks * sizeof(T) +
+                   c * 16,
+               src + c * per);
+  }
+  if (sca != nullptr && threadIdx.x < (BM + BN) / 2) {
+    // the 64 + 64 scales behind the slices, two per copy
+    const int i = 2 * threadIdx.x;
+    const double *src = i < BM ? sca + row0 + i : scb + col0 + i - BM;
+    cp_async16(stage + (size_t)2 * n_slices * BM * ks * sizeof(T) + i * sizeof(double), src);
+  }
 }
 
 struct In {
@@ -168,6 +286,72 @@ __device__ __forceinline__ void drain_one(const double (&acc)[K], const Scalars 
   }
 #pragma unroll
   for (int l = 0; l < K; ++l) o.p[l][ooff] = res[l];
+}
+
+// The GEMMs' warp tiling: each warp owns 16 rows of the CTA tile and NT
+// n8 column tiles, so a CTA runs 1024 / NT threads.  NT = 2 (16 warps,
+// 8 outputs a thread) for the f64 kernel at dd, whose folds want the
+// warps to hide their latency and whose 128 registers a thread hold them;
+// NT = 4 (8 warps, 16 outputs a thread) otherwise: the wider tiers'
+// accumulators need the registers, and the bf16 kernel at dd spills
+// within 128 (its scales and the fragments of two pairs in flight).
+__host__ __device__ constexpr int nt_of(int v) {
+  return K == 2 && v == kF64 ? 2 : 4;
+}
+__host__ __device__ constexpr int threads_of(int v) { return 1024 / nt_of(v); }
+
+// The outputs a thread owns in both GEMMs, the C-fragment layout of
+// mma.sync (lane = 4g + q, warp w): rows wr + g + 8i (i < 2, wr =
+// 16 (w % 4)) and columns wc + 8 (jj / 2) + 2q + jj % 2 (jj < 2 NT,
+// wc = 8 NT (w / 4)) of the CTA tile.
+__device__ __forceinline__ int frag_row(int i) {
+  return 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4 + 8 * i;
+}
+template <int NT>
+__device__ __forceinline__ int frag_col(int jj) {
+  return 8 * NT * (threadIdx.x / 128) + 8 * (jj / 2) + 2 * (threadIdx.x % 4) + jj % 2;
+}
+
+// The accumulators at the start of a K panel: zero, or (kLoadAcc) the
+// partial sums the previous panel stored raw in the output.
+template <int NT>
+__device__ __forceinline__ void start_acc(double (&acc)[2][2 * NT][K], int flags,
+                                          const Out &o, long long zo, int row0, int col0,
+                                          int m, int n) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+      const int r = row0 + frag_row(i), cc = col0 + frag_col<NT>(jj);
+      const bool in = (flags & kLoadAcc) && r < m && cc < n;
+#pragma unroll
+      for (int l = 0; l < K; ++l)
+        acc[i][jj][l] = in ? o.p[l][zo + (long long)r * n + cc] : 0.0;
+    }
+}
+
+// The drain: the fused Rgemm epilogue on the last panel (kFinal), the raw
+// accumulator on the others, then the store.
+template <int NT>
+__device__ __forceinline__ void drain_tile(const double (&acc)[2][2 * NT][K], const double *alpha,
+                                           const double *beta_s, int epilogue, int flags,
+                                           const In &c, long long zc, const Out &o,
+                                           long long zo, int row0, int col0, int m,
+                                           int n) {
+  const int epi = (flags & kFinal) ? epilogue : kNone;
+  const Scalars sc = load_scalars(alpha, beta_s, epi);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + frag_row(i);
+    if (r >= m) continue;
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+      const int cc = col0 + frag_col<NT>(jj);
+      if (cc >= n) continue;
+      const long long off = (long long)r * n + cc;
+      drain_one(acc[i][jj], sc, epi, c, zc + off, o, zo + off);
+    }
+  }
 }
 
 }  // namespace oz

@@ -3,31 +3,28 @@
 // epilogue fused into its drain, with an optional batch grid axis.
 //
 // Replaces the narrow branch of the Pallas kernel repro/kernels/ozgemm.py
-// (_slab_update with slice_dtype != limb dtype: _normalize_slices of
-// repro/core/ozaki.py, the pair dots in the accumulator dtype, the
-// per-diagonal rescale), which is the configuration the TPU kernel was
+// (_slab_update with slice_dtype != limb dtype: the pair dots in the
+// accumulator dtype and the per-diagonal rescale; its slicing,
+// _extract_slices and _normalize_slices of repro/core/ozaki.py, is the
+// pre-pass csrc/ozslice.cu), which is the configuration the TPU kernel was
 // written for: bf16 slices with f32 accumulation on the MXU.  The build
 // compiles this file once per limb count and variant (-DKLIMBS=2|3|4
 // -DOZ_VARIANT=0..3, kernels/_build.py), each library holding one variant.
 //
-// What it computes, per 64x64 output tile and per K slab of depth bk:
-//   1. per row of the A slab (column of B): the anchor sigma from the max
-//      |limb 0| as in csrc/ozgemm.cu, then sc = pow2_near(max |slice 0|),
-//      the scale of _normalize_slices;
-//   2. n_slices error-free slices per element on the anchor ladder, each
-//      stored in shared memory as slice(s * 2^(i*beta) / sc): the power of
-//      two scalings are exact (x / sc and x * (1 / sc) are the same
-//      correctly rounded number, 1 / sc being exact), and the conversion to
-//      the slice type rounds as torch's .to() does (f64 -> f32 -> bf16);
-//   3. per diagonal d, the pair dots of slices s + t = d summed in the
-//      accumulator type, then dsum (as f64) * ((sc_a * sc_b) * 2^(-d*beta))
-//      in that order, folded into the k-limb accumulator as in ozgemm.cu.
-// The drain is csrc/ozgemm.cu's.  The plain version is ozgemm_plain in
-// repro_torch/kernels/ozgemm.py with the same slice and accumulator types.
+// What it computes, per 64x64 output tile and per K slab of depth bk, from
+// the pre-pass's workspace (slices normalized per row of A and column of
+// B, each slice i stored as s * 2^(i*beta) / sc in the slice type, and
+// the scales sc): for each diagonal d, the pair dots of slices s + t = d
+// summed in the accumulator type, then dsum (as f64) * ((sc_a * sc_b) *
+// 2^(-d*beta)) in that order, folded into the k-limb accumulator as in
+// ozgemm.cu.  The drain is ozgemm.cu's.  The plain version is ozgemm_plain
+// in repro_torch/kernels/ozgemm.py with the same slice and accumulator
+// types.
 //
 // The pair dots, by variant (slice type / accumulator type):
-//   * bf16 / f32: the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32,
-//     each MMA issued with a zero C fragment and its result added into the
+//   * bf16 / f32: the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32
+//     on fragments loaded with ldmatrix, two pairs at a time, each MMA
+//     issued with a zero C fragment and its result added into the
 //     diagonal's running f32 sum with an IEEE add.  One MMA sums 16
 //     products of at most 2*beta = 16 bits on one grid (at most 20 bits, so
 //     exact however the unit aligns them), and every partial sum of a
@@ -37,28 +34,30 @@
 //     rounds inside an accumulation it was never asked to make.
 //   * f32 / f32: FFMA on the CUDA cores (exact products, exact sums by the
 //     same headroom).  beta <= 11 with an f32 accumulator, so the slices are
-//     kept as f16, which holds every one of them exactly: 32 qd slices then
-//     fit shared memory.
+//     kept as f16, which holds every one of them exactly.
 //   * bf16 / f64 and f32 / f64: DFMA on the slices widened exactly to f64.
 //
 // Bound on the H100: the tensor-core dots are n_pairs * 2 * m * n * bk
-// flops per slab at 989e12 bf16 flop/s; the f64 work (extraction, rescale
-// and folds, three times the f64-slice kernel's diagonals) is the larger
-// part at every tier, against 17e12 f64 instructions per second
-// (chip_smoke.py counts both).
+// flops per slab at 989e12 bf16 flop/s; the f64 work of the rescale and
+// folds (three times the f64-slice kernel's diagonals) is the larger part
+// at every tier, against 17e12 f64 instructions per second (chip_smoke.py
+// counts both, the pre-pass's extraction in the f64 part).
 //
-// Design: one CTA of 256 threads (8 warps) per 64x64 output tile.  Warp w
-// owns rows 16*(w % 4) .. +16 and columns 32*(w / 4) .. +32, four m16n8
-// tiles; each thread holds its 16 outputs in the mma C-fragment layout
-// (rows g and g + 8, columns 8j + 2q and 8j + 2q + 1 for lane = 4g + q),
-// the same for every variant, so the rescale, fold and drain are shared.
-// Slices sit in shared memory row-major with K contiguous
-// ([slice][row][k] for A, [slice][column][k] for B), the slab depth
-// rounded up to 16 (zero-filled) and padded by 8 elements so that the
-// fragment loads hit 32 distinct banks.  Ragged edges are masked; a masked
-// entry slices to zero, which equals the reference's zero padding.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// Design: one CTA of 8 warps per 64x64 output tile (oz_device.cuh
+// nt_of), every thread in every phase.  The
+// slices stream from the workspace into shared memory with cp.async, one
+// stage per slab (a stage being the slab's slices of the tile's 64 rows
+// and 64 columns, K contiguous and padded by 8 elements so that the
+// fragment loads hit 32 distinct banks, and their scales): two stages
+// where two fit (dd), so slab j + 1 lands while slab j is dotted and
+// folded, else one.  Warp w owns rows 16*(w % 4) .. +16 and NT m16n8
+// tiles from column 8*NT*(w / 4) on; each thread holds its 4*NT outputs in
+// the mma C-fragment layout (oz_device.cuh frag_row/frag_col), the same
+// for every variant and for ozgemm.cu, so the rescale, fold and drain are
+// shared.  sc_a * sc_b is formed once per output per slab.
+// A K panel (kernels/ozgemm.py walks K in panels when the workspace
+// outgrows its budget) starts from the accumulator the previous panel
+// stored, and only the last one drains with the epilogue.
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -75,33 +74,6 @@ namespace {
 
 using namespace oz;
 
-constexpr int THREADS = 256;
-
-// How a variant keeps its slices in shared memory.
-template <int V>
-struct Store;
-template <>
-struct Store<kBf16F32> {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ T put(double x) {
-    return __float2bfloat16_rn(__double2float_rn(x));
-  }
-};
-template <>
-struct Store<kBf16F64> : Store<kBf16F32> {};
-template <>
-struct Store<kF32F32> {
-  using T = __half;  // exact: beta <= 11 with an f32 accumulator
-  static __device__ __forceinline__ T put(double x) {
-    return __float2half_rn(__double2float_rn(x));
-  }
-};
-template <>
-struct Store<kF32F64> {
-  using T = float;
-  static __device__ __forceinline__ T put(double x) { return __double2float_rn(x); }
-};
-
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -117,196 +89,177 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t pair_at(const T *p) {
-  return *reinterpret_cast<const uint32_t *>(p);
+// Four 8x8 b16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8: r[m] receives row g, elements 2q, 2q + 1 of
+// matrix m (lane = 4g + q), the mma fragment layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void *row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
-template <int V, bool BATCHED>
-__global__ void __launch_bounds__(THREADS)
-ozgemm_narrow_kernel(In a, In b, const double *__restrict__ alpha,
-                     const double *__restrict__ beta_s, In c, Out o, int m,
-                     int n, int k, int bk, int beta, int n_slices, int n_diag,
-                     int epilogue, long long stride_a, long long stride_b,
-                     long long stride_c) {
+// Pair dots taken U pairs at a time in the bf16 variant's pair loop.
+constexpr int PAIRS = 2;
+
+// The bf16 dots of U pairs (s, d - s), (s + 1, d - s - 1), ... added into
+// the diagonal's f32 sums: every fragment loaded first, then every MMA,
+// then every add, so that a warp keeps U * NT MMAs in flight (the sums
+// are exact in any order).
+template <int NT, int U>
+__device__ __forceinline__ void bf16_pairs(float (&ds)[2][2 * NT], const __nv_bfloat16 *sa,
+                                           const __nv_bfloat16 *sb, int s, int d, int ks,
+                                           int kp) {
+  // ldmatrix rows: A's m16 x k16 block as (rows 0-7, 8-15) x (k 0-7,
+  // 8-15); B's n8 tiles two at a time as (tile j, j + 1) x (k 0-7, 8-15)
+  const int l = threadIdx.x % 32;
+  const int wr = 16 * (threadIdx.x / 32 % 4), wc = 8 * NT * (threadIdx.x / 128);
+  const int ra = wr + l % 16, ka = 8 * (l / 16);
+  const int rb = wc + l % 8 + 8 * (l / 16), kb8 = 8 * (l / 8 % 2);
+  for (int kb = 0; kb < kp; kb += 16) {
+    uint32_t a[U][4], b[U][NT][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ldmatrix_x4(a[u], sa + ((size_t)(s + u) * BM + ra) * ks + kb + ka);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, sb + ((size_t)(d - s - u) * BN + rb + 8 * j) * ks + kb + kb8);
+        b[u][j][0] = r[0];
+        b[u][j][1] = r[1];
+        b[u][j + 1][0] = r[2];
+        b[u][j + 1][1] = r[3];
+      }
+    }
+    float p[U][NT][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_bf16(p[u][j], a[u][0], a[u][1], a[u][2], a[u][3], b[u][j][0], b[u][j][1]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        ds[0][2 * j] = __fadd_rn(ds[0][2 * j], p[u][j][0]);
+        ds[0][2 * j + 1] = __fadd_rn(ds[0][2 * j + 1], p[u][j][1]);
+        ds[1][2 * j] = __fadd_rn(ds[1][2 * j], p[u][j][2]);
+        ds[1][2 * j + 1] = __fadd_rn(ds[1][2 * j + 1], p[u][j][3]);
+      }
+  }
+}
+
+// One slab from one stage: each diagonal's exact sum in the accumulator
+// type, rescaled and folded once, most significant first.
+template <int V, int NT>
+__device__ __forceinline__ void slab_update(double (&acc)[2][2 * NT][K], const unsigned char *stage,
+                                            int ks, int kp, int kd, int beta, int n_slices,
+                                            int n_diag) {
   using T = typename Store<V>::T;
   using Acc = typename std::conditional<V == kBf16F32 || V == kF32F32, float,
                                         double>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ks = kstride(bk);
-  T *sa = reinterpret_cast<T *>(smem_raw);       // [n_slices][BM][ks]
-  T *sb = sa + (size_t)n_slices * BM * ks;       // [n_slices][BN][ks]
-  double *sig = reinterpret_cast<double *>(sb + (size_t)n_slices * BN * ks);
-  double *sc = sig + BM + BN;   // [BM + BN]: _normalize_slices' scale
-  double *isc = sc + BM + BN;   // [BM + BN]: 1 / sc, exact
-  bool *nz = reinterpret_cast<bool *>(isc + BM + BN);  // [BM + BN]
-
+  const T *sa = reinterpret_cast<const T *>(stage);  // [n_slices][BM][ks]
+  const T *sb = sa + (size_t)n_slices * BM * ks;     // [n_slices][BN][ks]
+  const double *sc = reinterpret_cast<const double *>(sb + (size_t)n_slices * BN * ks);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
-  const int wr = 16 * (warp % 4), wc = 32 * (warp / 4);
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const long long za = BATCHED ? blockIdx.z * stride_a : 0;
-  const long long zb = BATCHED ? blockIdx.z * stride_b : 0;
-  const double up = dd::pow2(53 - beta);
-  const double step = dd::pow2(-beta);
-  const int kpad = (bk + 15) / 16 * 16;
-
-  // this thread's outputs: rows wr + g + 8i, columns wc + 8(jj/2) + 2q + jj%2
-  double acc[2][8][K];
+  const int wr = 16 * (warp % 4), wc = 8 * NT * (warp / 4);
+  double scab[2][2 * NT];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < 2 * NT; ++jj)
+      scab[i][jj] = dd::mul(sc[frag_row(i)], sc[BM + frag_col<NT>(jj)]);
+  for (int d = 0; d < n_diag; ++d) {
+    Acc ds[2][2 * NT];
 #pragma unroll
-      for (int l = 0; l < K; ++l) acc[i][jj][l] = 0.0;
-
-  // the depth padding beyond bk stays zero for every slab
-  for (int idx = threadIdx.x; idx < n_slices * (BM + BN) * (kpad - bk); idx += THREADS) {
-    int row = idx / (kpad - bk), kk = bk + idx % (kpad - bk);
-    sa[(size_t)row * ks + kk] = Store<V>::put(0.0);
-  }
-
-  for (int k0 = 0; k0 < k; k0 += bk) {
-    const int kd = min(bk, k - k0);
-    // 1. anchors and scales: thread r < BM takes A's row r, BM <= thread <
-    //    BM + BN takes B's column; NaN propagates as in torch.amax
-    if (threadIdx.x < BM + BN) {
-      const bool is_a = threadIdx.x < BM;
-      const int r = is_a ? threadIdx.x : threadIdx.x - BM;
-      const int gi = (is_a ? row0 : col0) + r;
-      const bool in = gi < (is_a ? m : n);
-      double mu = 0.0;
-      for (int kk = 0; in && kk < kd; ++kk)
-        mu = nan_max(mu, fabs(__ldg(is_a ? &a.p[0][za + (long long)gi * k + k0 + kk]
-                                         : &b.p[0][zb + (long long)(k0 + kk) * n + gi])));
-      const double sigma = dd::mul(pow2_near(mu), up);
-      const bool nonzero = mu > 0.0;
-      double top = 0.0;  // max |slice 0|
-      for (int kk = 0; in && kk < kd; ++kk) {
-        double x = __ldg(is_a ? &a.p[0][za + (long long)gi * k + k0 + kk]
-                              : &b.p[0][zb + (long long)(k0 + kk) * n + gi]);
-        double s0 = nonzero ? dd::sub(dd::add(x, sigma), sigma) : 0.0;
-        top = nan_max(top, fabs(s0));
-      }
-      const double scale = pow2_near(top);
-      sig[threadIdx.x] = sigma;
-      sc[threadIdx.x] = scale;
-      isc[threadIdx.x] = __ddiv_rn(1.0, scale);
-      nz[threadIdx.x] = nonzero;
-    }
-    __syncthreads();
-    // 2. the normalized slices of every slab element
-    for (int idx = threadIdx.x; idx < BM * bk; idx += THREADS) {
-      const int r = idx / bk, kk = idx % bk;
-      const int gr = row0 + r;
-      const bool ok = gr < m && kk < kd;
-      const long long off = za + (long long)gr * k + k0 + kk;
-      double v[K];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int l = 0; l < K; ++l) v[l] = ok ? __ldg(&a.p[l][off]) : 0.0;
-      double sigma = sig[r];
-      const double inv = isc[r];
-      const bool nonzero = nz[r] && ok;
-      T *dst = sa + (size_t)r * ks + kk;
-      for (int s = 0; s < n_slices; ++s) {
-        double sl = slice_step(v, sigma, nonzero);
-        dst[(size_t)s * BM * ks] = Store<V>::put(dd::mul(dd::mul(sl, dd::pow2(s * beta)), inv));
-        sigma = dd::mul(sigma, step);
-      }
-    }
-    for (int idx = threadIdx.x; idx < bk * BN; idx += THREADS) {
-      const int kk = idx / BN, cc = idx % BN;
-      const int gc = col0 + cc;
-      const bool ok = gc < n && kk < kd;
-      const long long off = zb + (long long)(k0 + kk) * n + gc;
-      double v[K];
-#pragma unroll
-      for (int l = 0; l < K; ++l) v[l] = ok ? __ldg(&b.p[l][off]) : 0.0;
-      double sigma = sig[BM + cc];
-      const double inv = isc[BM + cc];
-      const bool nonzero = nz[BM + cc] && ok;
-      T *dst = sb + (size_t)cc * ks + kk;
-      for (int s = 0; s < n_slices; ++s) {
-        double sl = slice_step(v, sigma, nonzero);
-        dst[(size_t)s * BN * ks] = Store<V>::put(dd::mul(dd::mul(sl, dd::pow2(s * beta)), inv));
-        sigma = dd::mul(sigma, step);
-      }
-    }
-    __syncthreads();
-    // 3. diagonals, most significant first: the exact sum of the pair dots
-    //    in the accumulator type, rescaled and folded once
-    for (int d = 0; d < n_diag; ++d) {
-      Acc ds[2][8];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) ds[i][jj] = 0;
-      const int s_lo = max(0, d - n_slices + 1), s_hi = min(d, n_slices - 1);
+      for (int jj = 0; jj < 2 * NT; ++jj) ds[i][jj] = 0;
+    const int s_lo = max(0, d - n_slices + 1), s_hi = min(d, n_slices - 1);
+    if constexpr (V == kBf16F32) {
+      int s = s_lo;
+      for (; s + PAIRS <= s_hi + 1; s += PAIRS) bf16_pairs<NT, PAIRS>(ds, sa, sb, s, d, ks, kp);
+      for (; s <= s_hi; ++s) bf16_pairs<NT, 1>(ds, sa, sb, s, d, ks, kp);
+    } else {
       for (int s = s_lo; s <= s_hi; ++s) {
         const T *pa = sa + ((size_t)s * BM + wr + g) * ks;
         const T *pb = sb + ((size_t)(d - s) * BN + wc + g) * ks;
-        if constexpr (V == kBf16F32) {
-          for (int kb = 0; kb < kpad; kb += 16) {
-            const T *a_lo = pa + kb + 2 * q, *a_hi = a_lo + 8 * ks;
-            const uint32_t a0 = pair_at(a_lo), a1 = pair_at(a_hi);
-            const uint32_t a2 = pair_at(a_lo + 8), a3 = pair_at(a_hi + 8);
+        // rows g, g + 8 of the warp's block; columns 8(jj/2) + 2q + jj%2
+        for (int kk = 0; kk < kd; ++kk) {
+          Acc av[2], bv[2 * NT];
+          av[0] = (Acc)widen(pa[kk]);
+          av[1] = (Acc)widen(pa[8 * ks + kk]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const T *bp = pb + (size_t)8 * j * ks + kb + 2 * q;
-              float p[4];
-              mma_bf16(p, a0, a1, a2, a3, pair_at(bp), pair_at(bp + 8));
-              ds[0][2 * j] = __fadd_rn(ds[0][2 * j], p[0]);
-              ds[0][2 * j + 1] = __fadd_rn(ds[0][2 * j + 1], p[1]);
-              ds[1][2 * j] = __fadd_rn(ds[1][2 * j], p[2]);
-              ds[1][2 * j + 1] = __fadd_rn(ds[1][2 * j + 1], p[3]);
-            }
-          }
-        } else {
-          // rows g, g + 8 of the warp's block; columns 8(jj/2) + 2q + jj%2
-          for (int kk = 0; kk < kd; ++kk) {
-            Acc av[2], bv[8];
-            av[0] = (Acc)widen(pa[kk]);
-            av[1] = (Acc)widen(pa[8 * ks + kk]);
+          for (int jj = 0; jj < 2 * NT; ++jj)
+            bv[jj] = (Acc)widen(pb[(size_t)(8 * (jj / 2) + 2 * q + jj % 2 - g) * ks + kk]);
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              bv[jj] = (Acc)widen(pb[(size_t)(8 * (jj / 2) + 2 * q + jj % 2 - g) * ks + kk]);
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int jj = 0; jj < 8; ++jj) ds[i][jj] = fma(av[i], bv[jj], ds[i][jj]);
-          }
+            for (int jj = 0; jj < 2 * NT; ++jj) ds[i][jj] = fma(av[i], bv[jj], ds[i][jj]);
         }
       }
-      const double p2 = dd::pow2(-d * beta);
+    }
+    const double p2 = dd::pow2(-d * beta);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const double sca = sc[wr + g + 8 * i];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const double scb = sc[BM + wc + 8 * (jj / 2) + 2 * q + jj % 2];
-          fold(acc[i][jj], dd::mul((double)ds[i][jj], dd::mul(dd::mul(sca, scb), p2)));
-        }
-      }
+      for (int jj = 0; jj < 2 * NT; ++jj)
+        fold(acc[i][jj], dd::mul((double)ds[i][jj], dd::mul(scab[i][jj], p2)));
+  }
+}
+
+template <int V, bool BATCHED, int STAGES>
+__global__ void __launch_bounds__(threads_of(V))
+ozgemm_narrow_kernel(const typename Store<V>::T *__restrict__ wa,
+                     const double *__restrict__ sca,
+                     const typename Store<V>::T *__restrict__ wb,
+                     const double *__restrict__ scb, const double *__restrict__ alpha,
+                     const double *__restrict__ beta_s, In c, Out o, int m, int n,
+                     int k, int nslab, int bk, int beta, int n_slices, int n_diag,
+                     int epilogue, int flags, long long swa, long long swb,
+                     long long stride_c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ks = kstride(bk, V), kp = kdepth(bk, V);
+  const int rpa = rows_padded(m), rpb = rows_padded(n);
+  const int sbytes = stage_bytes(bk, n_slices, V);
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const long long zo = BATCHED ? blockIdx.z * (long long)m * n : 0;
+  // this entry's workspace: slab j's slices start j * n_slices * rows * kp
+  // on, its scales j * rows on
+  const auto *ea = wa + (BATCHED ? blockIdx.z * swa : 0);
+  const auto *eb = wb + (BATCHED ? blockIdx.z * swb : 0);
+  const double *eca = sca + (BATCHED && swa ? blockIdx.z * (long long)nslab * rpa : 0);
+  const double *ecb = scb + (BATCHED && swb ? blockIdx.z * (long long)nslab * rpb : 0);
+  const long long slab_a = (long long)n_slices * rpa * kp, slab_b = (long long)n_slices * rpb * kp;
+
+  constexpr int NT = nt_of(V);
+  double acc[2][2 * NT][K];
+  start_acc<NT>(acc, flags, o, zo, row0, col0, m, n);
+  auto load = [&](int j) {
+    load_stage(smem_raw + (STAGES == 2 ? (j & 1) * sbytes : 0), ea + j * slab_a,
+               eca + (long long)j * rpa, eb + j * slab_b, ecb + (long long)j * rpb, kp, ks,
+               n_slices, rpa, rpb, row0, col0);
+    cp_async_commit();
+  };
+  if (STAGES == 2 && nslab > 0) load(0);
+  for (int j = 0; j < nslab; ++j) {
+    if (STAGES == 2) {
+      if (j + 1 < nslab) load(j + 1);
+      else cp_async_commit();  // an empty group keeps the count
+      cp_async_wait<1>();
+    } else {
+      load(j);
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int kd = min(bk, k - j * bk);
+    slab_update<V, NT>(acc, smem_raw + (STAGES == 2 ? (j & 1) * sbytes : 0), ks, kp, kd, beta,
+                   n_slices, n_diag);
+    __syncthreads();
   }
-
-  // drain: the fused Rgemm epilogue, then the store
-  const Scalars scal = load_scalars(alpha, beta_s, epilogue);
-  const long long zc = BATCHED ? blockIdx.z * stride_c : 0;
-  const long long zo = BATCHED ? blockIdx.z * (long long)m * n : 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + wr + g + 8 * i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int cc = col0 + wc + 8 * (jj / 2) + 2 * q + jj % 2;
-      if (cc >= n) continue;
-      const long long off = (long long)r * n + cc;
-      drain_one(acc[i][jj], scal, epilogue, c, zc + off, o, zo + off);
-    }
-  }
+  drain_tile<NT>(acc, alpha, beta_s, epilogue, flags, c,
+             BATCHED ? blockIdx.z * stride_c : 0, o, zo, row0, col0, m, n);
 }
 
 }  // namespace
@@ -317,37 +270,50 @@ extern "C" int ozgemm_narrow_smem_bytes(int bk, int n_slices, int variant) {
   return smem_bytes(bk, n_slices, variant);
 }
 
-// out = epilogue(A @ B) at KLIMBS limbs over `batch` entries, with the
-// slices and pair dots of `variant`, which must be this library's
-// OZ_VARIANT.  The arguments are csrc/ozgemm.cu's ozgemm() (see there) plus
-// the variant.  Returns the launch's cudaGetLastError() (0 on success).
-extern "C" int ozgemm_narrow(const double *const *a, const double *const *b,
-                             const double *alpha, const double *beta_s,
-                             const double *const *c, double *const *o, int m,
-                             int n, int k, int batch, long long stride_a,
-                             long long stride_b, long long stride_c, int bk,
-                             int beta, int n_slices, int n_diag, int epilogue,
-                             int variant, cudaStream_t stream) {
-  if (n_slices < 1 || bk < 1 || variant != OZ_VARIANT)
+// out = epilogue(A @ B) at KLIMBS limbs over `batch` entries, from the
+// pre-pass's workspaces of A and B (csrc/ozslice.cu) with the slices of
+// `variant`, which must be this library's OZ_VARIANT: wa, sca and wb, scb
+// hold the slices and scales of `nslab` K slabs of depth bk (the panel
+// [k0, k0 + k), k its depth), entry z of A's at z * swa elements (0: one
+// workspace shared by every entry; its scales likewise), of B's at
+// z * swb.  c and o point at KLIMBS limb pointers (host arrays; c may hold
+// nulls unless the epilogue is 2 on the last panel); C and out (m, n) per
+// entry, row-major contiguous f64 on the device, entry z of C at
+// z * stride_c, of out at z * m * n.  alpha and beta_s point at KLIMBS
+// limbs each.  epilogue: 0 none, 1 alpha, 2 full.  flags (oz_device.cuh
+// PanelFlags): 1 start from the accumulator in out, 2 the last panel
+// (drain with the epilogue; otherwise store the raw accumulator).
+// Launches on `stream`; returns the launch's cudaGetLastError() (0 on
+// success).
+extern "C" int ozgemm_narrow(const void *wa, const double *sca, const void *wb,
+                             const double *scb, const double *alpha,
+                             const double *beta_s, const double *const *c,
+                             double *const *o, int m, int n, int k, int nslab,
+                             int batch, long long swa, long long swb,
+                             long long stride_c, int bk, int beta, int n_slices,
+                             int n_diag, int epilogue, int flags, int variant,
+                             cudaStream_t stream) {
+  if (n_slices < 1 || bk < 1 || nslab < 0 || variant != OZ_VARIANT)
     return (int)cudaErrorInvalidValue;
-  In ai, bi, ci;
+  using T = typename Store<OZ_VARIANT>::T;
+  In ci;
   Out oo;
   for (int l = 0; l < K; ++l) {
-    ai.p[l] = a[l];
-    bi.p[l] = b[l];
     ci.p[l] = c[l];
     oo.p[l] = o[l];
   }
-  auto kernel = batch > 1 ? ozgemm_narrow_kernel<OZ_VARIANT, true>
-                          : ozgemm_narrow_kernel<OZ_VARIANT, false>;
   const int smem = ozgemm_narrow_smem_bytes(bk, n_slices, variant);
+  const bool two = stages(bk, n_slices, variant) == 2;
+  auto kernel = batch > 1 ? (two ? ozgemm_narrow_kernel<OZ_VARIANT, true, 2>
+                                 : ozgemm_narrow_kernel<OZ_VARIANT, true, 1>)
+                          : (two ? ozgemm_narrow_kernel<OZ_VARIANT, false, 2>
+                                 : ozgemm_narrow_kernel<OZ_VARIANT, false, 1>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(ai, bi, alpha, beta_s, ci, oo, m, n,
-                                          k, bk, beta, n_slices, n_diag,
-                                          epilogue, stride_a, stride_b,
-                                          stride_c);
+  kernel<<<grid, threads_of(OZ_VARIANT), smem, stream>>>(
+      static_cast<const T *>(wa), sca, static_cast<const T *>(wb), scb, alpha, beta_s, ci,
+      oo, m, n, k, nslab, bk, beta, n_slices, n_diag, epilogue, flags, swa, swb, stride_c);
   return (int)cudaGetLastError();
 }

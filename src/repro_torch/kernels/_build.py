@@ -33,7 +33,7 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "LIMBS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mlgemm", "ozgemm", "ozgemm_narrow", "mpops")
+SOURCES = ("mlgemm", "ozslice", "ozgemm", "ozgemm_narrow", "mpops")
 LIMBS = (2, 3, 4)
 # sources built once per variant: name -> the variants' -DOZ_VARIANT values
 BUILD_VARIANTS = {"ozgemm_narrow": (0, 1, 2, 3)}

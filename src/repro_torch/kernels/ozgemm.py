@@ -1,21 +1,31 @@
 """Kernel #2: the fused Ozaki-slice GEMM (the ``ozaki-pallas`` backend).
 
-The port of ``repro.kernels.ozgemm``.  Per K slab of the plan's depth
-``bk``: slice the A and B slabs on their slab-local anchor ladders
-(``core.ozaki._extract_slices``); with narrow slices, normalize them into
-the slice type per row of A and per column of B
-(``core.ozaki._normalize_slices``); sum each diagonal's pair dots exactly
-in the accumulator type; rescale a narrow diagonal by ``(sc_a * sc_b) *
-2^(-d*beta)``; fold each diagonal into the k-limb accumulator
-(``dd.add_float`` at dd, ``renorm_list(acc + [dsum], k, sweeps=3)`` at
-td/qd).  The drain applies the Rgemm epilogue (``none`` | ``alpha`` |
-``full``, with the beta == 0 select) at k limbs.
+The port of ``repro.kernels.ozgemm``, in two launches.  The pre-pass
+(``kernels.ozslice``) slices each operand once per K slab of the plan's
+depth ``bk`` on the slab's anchor ladders (``core.ozaki._extract_slices``;
+with narrow slices normalized into the slice type per row of A and column
+of B, ``core.ozaki._normalize_slices``) into a workspace.  The GEMM then,
+per slab: sums each diagonal's pair dots exactly in the accumulator type;
+rescales a narrow diagonal by ``(sc_a * sc_b) * 2^(-d*beta)``; folds each
+diagonal into the k-limb accumulator (``dd.add_float`` at dd,
+``renorm_list(acc + [dsum], k, sweeps=3)`` at td/qd).  The drain applies
+the Rgemm epilogue (``none`` | ``alpha`` | ``full``, with the beta == 0
+select) at k limbs.
 
-On a CUDA tensor the wrapper launches a hand-written Hopper kernel at 2, 3
-or 4 limbs: ``csrc/ozgemm.cu`` for f64 slices, ``csrc/ozgemm_narrow.cu``
-for narrow ones (bf16 pair dots on the tensor cores); see those files for
-their design and bound.  On a CPU tensor it runs ``ozgemm_plain``, the
-same algorithm as tensor ops.  The two agree bit for bit on the card.
+The workspaces hold ``n_slices`` slices per operand element (f64: 8
+bytes each; narrow: 2, or 4 for f32/f64).  Where both operands' together
+would pass ``WORKSPACE_BYTES`` (2 GiB), K is walked in panels of whole
+slabs: pre-pass and GEMM per panel, the accumulator carried in the output
+between GEMM launches, the epilogue on the last panel only.  Slabs fold
+in slab order either way, so the bits do not change.
+
+On a CUDA tensor the wrapper launches hand-written Hopper kernels at 2, 3
+or 4 limbs: ``csrc/ozslice.cu``, then ``csrc/ozgemm.cu`` for f64 slices
+(pair dots on the f64 tensor cores) or ``csrc/ozgemm_narrow.cu`` for
+narrow ones (bf16 pair dots on the tensor cores); see those files for
+their design and bound.  A failed launch raises; nothing falls back.  On
+a CPU tensor it runs ``ozgemm_plain``, the same algorithm as tensor ops on
+the plain pre-pass's workspace.  The two agree bit for bit on the card.
 
 The (slice, accumulator) pairs are the ones the reference's kernel takes
 from a plan (``SLICE_PAIRS``): f64/f64, bf16/f32, f32/f32, and bf16 or f32
@@ -29,6 +39,7 @@ shared); on the card the batch is the kernel's third grid axis.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -36,12 +47,14 @@ import torch
 
 from .._device import common_device
 from ..core import mp
-from ..core.ozaki import (_extract_slices, _fold_diagonal_sum,
-                          _normalize_slices, as_dtype, diagonal_sums)
+from ..core.ozaki import _fold_diagonal_sum, as_dtype, diagonal_sums
 from . import _build
+from .ozslice import (STORAGE, kdepth, ozslice_call, ozslice_plain,
+                      rows_padded)
 
 __all__ = ["ozgemm_kernel_call", "ozgemm_plain", "EPILOGUES", "launches",
-           "SLICE_PAIRS", "VARIANTS", "SMEM_LIMIT", "smem_bytes"]
+           "SLICE_PAIRS", "VARIANTS", "SMEM_LIMIT", "smem_bytes",
+           "WORKSPACE_BYTES", "panel_slabs", "launch_shapes"]
 
 EPILOGUES = ("none", "alpha", "full")
 
@@ -64,49 +77,75 @@ VARIANTS = {v: f"{_SHORT[s]}/{_SHORT[a]}"
 launches = dict.fromkeys(_build.LIMBS, 0)
 launches.update({(nl, name): 0 for nl in _build.LIMBS
                  for name in VARIANTS.values()})
+# the same launches by (key of ``launches``, (batch, m, k, n))
+launch_shapes = collections.Counter()
 
 # shared memory one Hopper block may opt in to, and the batch grid limit
 SMEM_LIMIT = 232448
 MAX_BATCH = 65535
 _TILE = 64 + 64  # rows of A plus columns of B per CTA
-# what the plain version holds of a run of K slabs at once (bytes)
+# both operands' workspaces together, per K panel (bytes)
+WORKSPACE_BYTES = 2 << 30
+# what the plain version holds of a run of K slabs' diagonals at once
 _PLAIN_RUN_BYTES = 1 << 30
 
 
 def smem_bytes(bk, n_slices, slice_dtype_name="float64",
                acc_dtype_name="float64"):
-    """Shared memory one CTA of the kernel asks for: ``oz::smem_bytes`` of
-    ``csrc/oz_device.cuh``, the count both kernel builds launch with,
+    """Shared memory one CTA of the GEMM asks for: ``oz::smem_bytes`` of
+    ``csrc/oz_device.cuh``, the count both GEMM builds launch with,
     repeated here so that CPU tensors are refused alike (chip_smoke.py
-    holds the two equal on the card)."""
+    holds the two equal on the card).  One stage holds a slab's slices of
+    the CTA's 64 rows and 64 columns (rows padded by 32 bytes for f64, 8
+    elements for narrow slices) and the narrow scales; the f64 and
+    bf16/f32 kernels run two stages where two fit, the rest one."""
     variant = SLICE_PAIRS[slice_dtype_name, acc_dtype_name]
-    if variant is None:
-        return n_slices * bk * _TILE * 8 + _TILE * (8 + 1)
-    kstride = -(-bk // 16) * 16 + 8
-    elem = 4 if variant == 3 else 2
-    return n_slices * _TILE * kstride * elem + _TILE * (3 * 8 + 1)
+    ks = kdepth(bk, variant) + (4 if variant is None else 8)
+    stage = n_slices * _TILE * ks * STORAGE[variant].itemsize
+    if variant is not None:
+        stage += _TILE * 8
+    two = variant in (None, 0) and 2 * stage <= SMEM_LIMIT
+    return (2 if two else 1) * stage
 
 
-def _slab_diagonals(a, b, *, beta, n_slices, full, slice_dtype, acc_dtype):
-    """Each diagonal's f64 sum for a run of K slabs at once, the slab axis
-    first: a (c, ..., m, bk), b (c, ..., bk, n) -> [(c, ..., m, n)], most
-    significant diagonal first (``repro.kernels.ozgemm._slab_update`` step
-    for step, every slab on its own anchors and scales)."""
-    tier = mp.tier_module(a)
-    sa = _extract_slices(a, beta, n_slices, axis=-1, ops=tier)
-    sb = _extract_slices(b, beta, n_slices, axis=-2, ops=tier)
-    narrow = slice_dtype != torch.float64
-    if narrow:
-        # pair (s, t) then carries 2^(-(s+t)*beta): one rescale a diagonal
-        sa, sc_a = _normalize_slices(sa, beta, -1, slice_dtype)
-        sb, sc_b = _normalize_slices(sb, beta, -2, slice_dtype)
-    out = []
-    for d, dsum in diagonal_sums(sa, sb, n_slices, full, acc_dtype):
-        if narrow:
-            dsum = dsum.to(torch.float64) * (
-                (sc_a * sc_b) * 2.0 ** (-d * beta))
-        out.append(dsum)
-    return out
+def panel_slabs(nslab, entries_a, m, entries_b, n, bk, n_slices, variant,
+                budget=None):
+    """K slabs per panel: as many as both operands' workspaces hold within
+    ``budget`` bytes (``WORKSPACE_BYTES``), at least one."""
+    budget = WORKSPACE_BYTES if budget is None else budget
+    rows = entries_a * rows_padded(m) + entries_b * rows_padded(n)
+    per_slab = rows * (n_slices * kdepth(bk, variant)
+                       * STORAGE[variant].itemsize
+                       + (0 if variant is None else 8))
+    return max(1, min(nslab, budget // max(per_slab, 1)))
+
+
+def _fold_panel(acc, wa, sca, wb, scb, *, m, n, beta, n_slices, full,
+                acc_dtype, batched):
+    """Fold one K panel's slabs into acc from the workspaces, in slab order:
+    each diagonal's pair dots summed in ``acc_dtype`` (a run of slabs at
+    once), a narrow diagonal rescaled by ``(sc_a * sc_b) * 2^(-d*beta)``
+    (``repro.kernels.ozgemm._slab_update`` step for step)."""
+    nslab = wa.shape[1]
+    n_diag = 2 * n_slices - 1 if full else n_slices
+    entries = max(wa.shape[0], wb.shape[0])
+    run = max(1, _PLAIN_RUN_BYTES // (8 * entries * n_diag * m * n or 1))
+    for j0 in range(0, nslab, run):
+        js = slice(j0, j0 + run)
+        # (run, entries, m, kp) and (run, entries, kp, n)
+        sa = [wa[:, js, s, :m].transpose(0, 1) for s in range(n_slices)]
+        sb = [wb[:, js, t, :n].transpose(0, 1).transpose(-1, -2)
+              for t in range(n_slices)]
+        dsums = list(diagonal_sums(sa, sb, n_slices, full, acc_dtype))
+        if sca is not None:
+            sab = sca[:, js, :m].transpose(0, 1)[..., None] \
+                * scb[:, js, :n].transpose(0, 1)[..., None, :]
+            dsums = [(d, ds.to(torch.float64) * (sab * 2.0 ** (-d * beta)))
+                     for d, ds in dsums]
+        for j in range(dsums[0][1].shape[0]):
+            for _, ds in dsums:
+                acc = _fold_diagonal_sum(acc, ds[j] if batched else ds[j, 0])
+    return acc
 
 
 def apply_epilogue(res, alpha=None, beta=None, c=None, ops=mp):
@@ -125,46 +164,32 @@ def apply_epilogue(res, alpha=None, beta=None, c=None, ops=mp):
 
 def ozgemm_plain(a, b, *, bk, beta, n_slices, full=False, alpha=None,
                  beta_s=None, c=None, slice_dtype_name="float64",
-                 acc_dtype_name="float64"):
-    """The kernel's algorithm as tensor ops (tier values in, tier value
-    out; leading batch dims broadcast): the tier module's arithmetic, no
-    kernel launch on any device."""
-    _pair(slice_dtype_name, acc_dtype_name)
-    sdt, adt = as_dtype(slice_dtype_name), as_dtype(acc_dtype_name)
-    m, k = a.shape[-2:]
-    n = b.shape[-1]
-    batch = np.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-    lead = mp.limbs(a)[0]
-    acc = mp.zeros(batch + (m, n), mp.precision_of(a), dtype=lead.dtype,
-                   device=lead.device)
-    # the K slabs as a leading axis, the ragged last one zero-padded (a
-    # zero entry slices to zero and moves no maximum: the reference's
-    # padding), so a run of slabs is sliced and dotted at once; the folds
-    # stay in slab order
-    pad, lead_dims = -k % bk, len(batch)
-
-    def slabs(x, rows):
-        def f(l):
-            l = l.reshape((1,) * (lead_dims + 2 - l.dim()) + tuple(l.shape))
-            if rows:  # (..., m, k) -> (nslab, ..., m, bk)
-                l = torch.nn.functional.pad(l, (0, pad))
-                return l.reshape(l.shape[:-1] + (-1, bk)).movedim(-2, 0)
-            l = torch.nn.functional.pad(l, (0, 0, 0, pad))
-            return l.reshape(l.shape[:-2] + (-1, bk, n)).movedim(-3, 0)
-        return mp.map_limbs(f, x)
-
-    a_s, b_s = slabs(a, True), slabs(b, False)
-    n_diag = 2 * n_slices - 1 if full else n_slices
-    per_slab = 8 * int(np.prod(batch)) * (n_diag * m * n
-                                          + 2 * n_slices * (m + n) * bk)
-    run = max(1, _PLAIN_RUN_BYTES // per_slab)
-    for j0 in range(0, a_s.shape[0], run):
-        dsums = _slab_diagonals(a_s[j0:j0 + run], b_s[j0:j0 + run],
-                                beta=beta, n_slices=n_slices, full=full,
-                                slice_dtype=sdt, acc_dtype=adt)
-        for j in range(dsums[0].shape[0]):
-            for dsum in dsums:
-                acc = _fold_diagonal_sum(acc, dsum[j])
+                 acc_dtype_name="float64", workspace_bytes=None):
+    """The kernels' algorithm as tensor ops (tier values in, tier value
+    out; A and B may carry one leading batch axis, an operand without it
+    being shared): the plain pre-pass's workspaces, K panel by K panel as
+    the kernels walk them, and the tier module's arithmetic; no kernel
+    launch on any device."""
+    variant = _pair(slice_dtype_name, acc_dtype_name)
+    adt = as_dtype(acc_dtype_name)
+    la, lb = mp.limbs(a)[0], mp.limbs(b)[0]
+    m, k = la.shape[-2:]
+    n = lb.shape[-1]
+    batch = tuple(np.broadcast_shapes(la.shape[:-2], lb.shape[:-2]))
+    acc = mp.zeros(batch + (m, n), mp.precision_of(a), dtype=la.dtype,
+                   device=la.device)
+    nslab = -(-k // bk)
+    panel = panel_slabs(nslab, la.shape[0] if la.dim() == 3 else 1, m,
+                        lb.shape[0] if lb.dim() == 3 else 1, n, bk, n_slices,
+                        variant, workspace_bytes)
+    kw = dict(bk=bk, beta=beta, n_slices=n_slices, variant=variant)
+    for p0 in range(0, nslab, panel):
+        cnt = min(panel, nslab - p0)
+        wa, sca = ozslice_plain(a, rows=True, slab0=p0, nslab=cnt, **kw)
+        wb, scb = ozslice_plain(b, rows=False, slab0=p0, nslab=cnt, **kw)
+        acc = _fold_panel(acc, wa, sca, wb, scb, m=m, n=n, beta=beta,
+                          n_slices=n_slices, full=full, acc_dtype=adt,
+                          batched=bool(batch))
     return apply_epilogue(acc, alpha, beta_s, c, ops=mp.tier_module(a))
 
 
@@ -231,7 +256,10 @@ def _check(operands, a, b, alpha, beta_s, c):
 
 
 def _launch(nl, a, b, alpha, beta_s, c, batch, *, bk, beta, n_slices,
-            n_diag, epi, variant=None):
+            n_diag, epi, variant=None, workspace_bytes=None, workspaces=None):
+    """The pre-pass and the GEMM, K panel by K panel.  ``workspaces``: the
+    pre-pass's (A, B) output for the whole of K, to launch the GEMM alone
+    (chip_smoke.py times the two apart)."""
     m, k = a[0].shape[-2:]
     n = b[0].shape[-1]
     dev = a[0].device
@@ -243,38 +271,69 @@ def _launch(nl, a, b, alpha, beta_s, c, batch, *, bk, beta, n_slices,
     # the drain reads each scalar's limbs from one buffer
     sc_alpha = torch.cat([l.reshape(1) for l in alpha]) if alpha else None
     sc_beta = torch.cat([l.reshape(1) for l in beta_s]) if beta_s else None
-
-    def stride(ls, per):
-        return per if ls and ls[0].dim() == 3 else 0
+    ea = batch if a[0].dim() == 3 else 1
+    eb = batch if b[0].dim() == 3 else 1
+    nslab = -(-k // bk)
+    panel = nslab if workspaces else panel_slabs(
+        nslab, ea, m, eb, n, bk, n_slices, variant, workspace_bytes)
+    kp = kdepth(bk, variant)
 
     narrow = variant is not None
     fn = _build.load("ozgemm_narrow", nl, variant).ozgemm_narrow if narrow \
         else _build.load("ozgemm", nl).ozgemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
-        [ctypes.c_longlong] * 3 + [ctypes.c_int] * (6 if narrow else 5) + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (8 if narrow else 6) + \
+        [ctypes.c_int] * (5 if narrow else 4) + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_int] * (7 if narrow else 5) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_build.pointers(a), _build.pointers(b),
-             None if sc_alpha is None else sc_alpha.data_ptr(),
-             None if sc_beta is None else sc_beta.data_ptr(),
-             _build.pointers(c or [None] * nl), _build.pointers(out),
-             m, n, k, batch or 1, stride(a, m * k), stride(b, k * n),
-             stride(c, m * n), bk, beta, n_slices, n_diag,
-             EPILOGUES.index(epi), *((variant,) if narrow else ()),
-             _build.stream(dev))
-    if err:
-        raise RuntimeError(
-            f"ozgemm launch at {nl} limbs (variant {variant}) failed: CUDA "
-            f"error {err} (bk={bk}, n_slices={n_slices})")
-    launches[nl if variant is None else (nl, VARIANTS[variant])] += 1
+    pkw = dict(bk=bk, beta=beta, n_slices=n_slices, variant=variant)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    ws_a, ws_b = workspaces or (None, None)
+    # K == 0 is one launch over no slab: the drain of a zero accumulator
+    for p0 in range(0, max(nslab, 1), panel):
+        cnt = min(panel, nslab - p0)
+        if cnt > 0 and not workspaces:  # the buffers serve every panel
+            ws_a = ozslice_call(a, rows=True, slab0=p0, nslab=cnt, out=ws_a,
+                                **pkw)
+            ws_b = ozslice_call(b, rows=False, slab0=p0, nslab=cnt,
+                                out=ws_b, **pkw)
+        (wa, sca), (wb, scb) = ws_a or (None, None), ws_b or (None, None)
+        flags = (1 if p0 > 0 else 0) | (2 if p0 + panel >= nslab else 0)
+
+        def ws_stride(e, rows):
+            return cnt * n_slices * rows_padded(rows) * kp if e > 1 else 0
+
+        args = [ptr(wa), ptr(sca), ptr(wb), ptr(scb)] if narrow \
+            else [ptr(wa), ptr(wb)]
+        args += [ptr(sc_alpha), ptr(sc_beta),
+                 _build.pointers(c or [None] * nl), _build.pointers(out),
+                 m, n]
+        args += [min(cnt * bk, k - p0 * bk), cnt] if narrow else [cnt]
+        args += [batch or 1, ws_stride(ea, m), ws_stride(eb, n),
+                 m * n if c and c[0].dim() == 3 else 0, bk]
+        args += [beta, n_slices] if narrow else [n_slices]
+        args += [n_diag, EPILOGUES.index(epi), flags]
+        args += [variant] if narrow else []
+        err = fn(*args, _build.stream(dev))
+        if err:
+            raise RuntimeError(
+                f"ozgemm launch at {nl} limbs (variant {variant}) failed: "
+                f"CUDA error {err} (bk={bk}, n_slices={n_slices}, panel "
+                f"{p0}+{cnt} of {nslab} slabs)")
+        key = nl if variant is None else (nl, VARIANTS[variant])
+        launches[key] += 1
+        launch_shapes[key, (batch or 1, m, k, n)] += 1
     return out
 
 
 def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
                        slice_dtype_name: str = "float64",
                        acc_dtype_name: str = "float64",
-                       epilogue: str = "none", full: bool = False):
-    """Raw kernel invocation.
+                       epilogue: str = "none", full: bool = False,
+                       workspace_bytes: int | None = None):
+    """Raw kernel invocation: the pre-pass and the GEMM.
 
     ``operands``: nlimbs A limbs (m, k) + nlimbs B limbs (k, n), nlimbs =
     2, 3 or 4; with ``epilogue="alpha"`` also nlimbs (1, 1) alpha limbs;
@@ -286,7 +345,9 @@ def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
     bf16/f64, f32/f64 -- any other raises ``ValueError`` naming it.  Any
     shape: ragged edges are the kernel's own business.  A slice count whose
     shared memory exceeds what a Hopper block may hold raises
-    ``ValueError`` with the byte count.  Returns the nlimbs output limbs.
+    ``ValueError`` with the byte count.  ``workspace_bytes``: the K-panel
+    budget of both operands' workspaces (``WORKSPACE_BYTES`` when None).
+    Returns the nlimbs output limbs.
     """
     variant = _pair(slice_dtype_name, acc_dtype_name)
     nl, a, b, alpha, beta_s, c = _split_operands(operands, epilogue)
@@ -303,7 +364,7 @@ def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
         n_diag = 2 * n_slices - 1 if full else n_slices
         return _launch(nl, a, b, alpha, beta_s, c, batch, bk=bk, beta=beta,
                        n_slices=n_slices, n_diag=n_diag, epi=epilogue,
-                       variant=variant)
+                       variant=variant, workspace_bytes=workspace_bytes)
 
     def val(ls):
         return None if ls is None else mp.from_limbs(ls)
@@ -311,5 +372,6 @@ def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
     out = ozgemm_plain(val(a), val(b), bk=bk, beta=beta, n_slices=n_slices,
                        full=full, alpha=val(alpha), beta_s=val(beta_s),
                        c=val(c), slice_dtype_name=slice_dtype_name,
-                       acc_dtype_name=acc_dtype_name)
+                       acc_dtype_name=acc_dtype_name,
+                       workspace_bytes=workspace_bytes)
     return mp.limbs(out)

@@ -109,7 +109,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(KeyError):
         jgemm.make_plan(8, 8, 8, backend="ozaki-pallas", use_cache=False,
                         slice_dtype="bfloat16", acc_dtype="bfloat16")
-    with pytest.raises(ValueError, match="asks 248960 B of shared memory"):
+    with pytest.raises(ValueError, match="asks 246784 B of shared memory"):
         ozgemm_kernel_call(*a, *b, bk=16, beta=7, n_slices=40,
                            slice_dtype_name="bfloat16",
                            acc_dtype_name="float32")
