@@ -20,19 +20,23 @@ run in the order 1-6, 8, 9, 10, 7, 11):
      full, plus a B-shared batch 6 x 96x80x72 per tier with the three
      epilogues; batched calls equal the looped ones for both kernels at dd,
      td and qd; kernel #2's narrow variants (csrc/ozgemm_narrow.cu:
-     bf16/f32, f32/f32, bf16/f64 and f32/f64 slices/accumulator) at dd, td
-     and qd on 509x263x131, the Hilbert 32^3 and a residual 2048x2048x4
-     with the three epilogues, on the SDP stack (99 x 50x50x50, A shared)
-     and the B-shared batch with the three epilogues, batched 5 x 70x40x66
-     against looped, and an adversarial headroom case (all
-     digits at their largest, bk = 16, dd) whose f32 diagonal sums must
-     equal the same dots in f64; kernel #2's slicing pre-pass
+     bf16/f32, f32/f32, f16/f32, bf16/f64 and f32/f64 slices/accumulator)
+     at dd, td and qd on 509x263x131, the Hilbert 32^3 and a residual
+     2048x2048x4 with the three epilogues, on the SDP stack (99 x
+     50x50x50, A shared) and the B-shared batch with the three epilogues,
+     batched 5 x 70x40x66 against looped, and an adversarial headroom case
+     (all digits at their largest, bk = 16, dd) whose f32 diagonal sums
+     must equal the same dots in f64; kernel #2's slicing pre-pass
      (csrc/ozslice.cu) against its plain version for every slice type at
      every tier on 509x263x131, the SDP stack and the B-shared batch; the
      K-panel path (a workspace budget of one byte: one slab per panel) on
-     the same shapes for f64 and bf16/f32 slices at every tier; the f64
+     the same shapes for every slice pair at every tier; the f64
      adversarial headroom case on the DMMA kernel at dd and qd, whose f64
-     diagonal sums must equal the same dots summed exactly on the host;
+     diagonal sums must equal the same dots summed exactly on the host, and
+     three more on the narrow kernel's tensor-core routes: f32/f32 at beta
+     9 on the f16 MMA (bk 16, 4 slices), bf16/f64 at td (diagonals past
+     2^24 grid units, summed in two f32 groups into f64) and f32/f64 on
+     DMMA at dd, each kernel == plain and the plain sums == exact;
      the elementwise kernels (csrc/mpops.cu) at every tier on the shapes
      of the SDP loop;
   3. the first main path, with every launch counter set to 0 first: dd
@@ -71,8 +75,9 @@ run in the order 1-6, 8, 9, 10, 7, 11):
      dd, the bound the reference's tests set for narrow plans; 16*k*ulp at
      td/qd), the tiny-rows operands of tests/test_ozgemm_kernel.py at dd,
      the Hilbert gates at every tier, the other narrow pairs (f32/f32,
-     bf16/f64, f32/f64) through Rgemm at every tier, rgesv at n = 2048
-     (f64 factor, dd target; its residual through the fused drain), and
+     f16/f32, bf16/f64, f32/f64) through Rgemm at every tier, rgesv at
+     n = 2048 (f64 factor, dd target; its residual through the fused
+     drain), and
      solve_sdp on theta1's shape at binary128 (the batched Schur stacks on
      the narrow kernel) held to phase 9's gates, the gap to the
      reference's own value on this kernel, its history bit for bit
@@ -85,8 +90,8 @@ run in the order 1-6, 8, 9, 10, 7, 11):
      shapes with the epilogue full (plain versions at 512^3 and 256^3, held
      bit for bit again) and the bf16/f32 dd one on the SDP stack; kernel
      #2 timed as one call, and its pre-pass and GEMM apart, its bound the
-     larger of the pair dots on their unit (DMMA for f64 slices) and the
-     f64 work; the elementwise kernels on the SDP's pairwise
+     larger of the pair dots on their unit (DMMA for f64 and f32/f64
+     slices, the 16-bit tensor cores for bf16 and f16) and the f64 work; the elementwise kernels on the SDP's pairwise
      product, and (as context only: no PyTorch call computes a multi-limb
      GEMM) an f64 torch.matmul, or a bf16 one beside the narrow variants,
      at the same shapes;
@@ -135,10 +140,9 @@ MLGEMM_OPS_PER_FMA = 51
 OZGEMM_OPS_PER_SLICE = 23
 ADD_FLOAT_OPS = 10      # dd.add_float, one fold per output per diagonal
 DD_MUL_OPS, DD_ADD_OPS = 31, 20
-# the dense bf16 tensor-core rate of the H100 SXM (data sheet), for the
-# narrow variants' pair dots; FFMA issues at half the 67 TFLOP/s f32 rate
+# the dense bf16 (and f16) tensor-core rate of the H100 SXM (data sheet),
+# for the 16-bit narrow variants' pair dots
 BF16_TC_PEAK = 989e12
-F32_INSTR_PER_S = 67e12 / 2
 # per slice element in csrc/ozslice.cu's normalization (two DMULs), per
 # output per diagonal in csrc/ozgemm_narrow.cu's rescale (two DMULs), and
 # per output per slab its sc_a * sc_b (one)
@@ -146,7 +150,8 @@ NARROW_NORM_OPS, NARROW_RESCALE_OPS = 2, 2
 # the narrow plans of phase 10: the TPU kernel's own configuration
 NARROW = {"slice_dtype": "bfloat16", "acc_dtype": "float32"}
 NARROW_PAIRS = (("bfloat16", "float32"), ("float32", "float32"),
-                ("bfloat16", "float64"), ("float32", "float64"))
+                ("float16", "float32"), ("bfloat16", "float64"),
+                ("float32", "float64"))
 # the bound tests/test_ozgemm_kernel.py sets for narrow plans at dd
 NARROW_DD_BOUND = 2.0 ** -90
 # theta1's shape floors the primal infeasibility above the 1e-20 of
@@ -341,8 +346,8 @@ def main() -> int:
         for kern, regs, st, ld in ptxas_summary(text):
             log(f"phase 1: {name} k={nl} {kern}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
-            # kernel #2's redesigned GEMMs at dd (f64 and bf16/f32 slices)
-            check(not (nl == 2 and name in ("ozgemm", "ozgemm_narrow:0")
+            # kernel #2's GEMMs at dd, every slice variant
+            check(not (nl == 2 and name.startswith("ozgemm")
                        and st + ld > 0),
                   f"{name} k={nl} {kern} spills {st} + {ld} B")
     # kernel #2's shared memory as the sources count it, against the
@@ -353,8 +358,9 @@ def main() -> int:
                 if v is None:
                     got = _build.load("ozgemm", nl).ozgemm_smem_bytes(bk, ns)
                 else:
-                    got = _build.load("ozgemm_narrow", nl, v) \
-                        .ozgemm_narrow_smem_bytes(bk, ns, v)
+                    cv = ozslice.CUDA_VARIANT[v]  # f16/f32: f32/f32's build
+                    got = _build.load("ozgemm_narrow", nl, cv) \
+                        .ozgemm_narrow_smem_bytes(bk, ns, cv)
                 check(got == ozgemm.smem_bytes(bk, ns, sdt, adt),
                       f"shared memory count {sdt}/{adt} bk={bk} "
                       f"n_slices={ns}: kernel {got} B, wrapper "
@@ -536,7 +542,8 @@ def main() -> int:
             check(same, f"{narrow_name(p, sdt, adt)} batched differs from "
                   f"looped")
     # the adversarial headroom case: every slice digit at its largest, so
-    # the f32 diagonal sums reach up to 2^22 grid units of their 24 bits;
+    # the f32 diagonal sums reach past 2^23 grid units of their 24 bits
+    # (a normalized bf16 slice is an integer times 2^-beta);
     # the kernel equals the plain version, and the plain version's f32
     # sums equal the same slice dots in f64, where they are exact
     a = headroom_operand((128, 64), 8, 1, dev)
@@ -560,11 +567,11 @@ def main() -> int:
             check(torch.equal(f32.to(torch.float64), f64),
                   f"headroom diagonal {d} of slab {k0 // 16}: the f32 sum "
                   f"is not the exact one")
-            top = max(top, float(f64.abs().max()) * 2.0 ** 14)
+            top = max(top, float(f64.abs().max()) * 2.0 ** 16)
     log(f"phase 2: headroom case: every f32 diagonal sum equals its f64 "
         f"(exact) value; largest {top:.0f} grid units = "
         f"2^{torch.log2(torch.tensor(top)).item():.2f} of the 2^24 headroom")
-    check(top > 2 ** 21, "the headroom case did not fill the f32 sums")
+    check(top > 2 ** 23, "the headroom case did not fill the f32 sums")
     # kernel #2's pre-pass (csrc/ozslice.cu) on the operands phase 2 gives
     # the GEMMs, every slice type at every tier: slices and scales bit for
     # bit; then the K-panel path, a one-byte workspace budget walking K one
@@ -601,9 +608,6 @@ def main() -> int:
                             ozslice.ozslice_call(mp.limbs(x), rows=rows,
                                                  **kw),
                             ozslice.ozslice_plain(x, rows=rows, **kw))
-                if (sdt, adt) not in (("float64", "float64"),
-                                      NARROW_PAIRS[0]):
-                    continue
                 epi = "none" if c is None else "full"
                 ops, ekw = oz_operands(a, b, epi, alpha, beta, c)
                 hold(f"ozgemm_{p}" if v is None else narrow_name(p, sdt, adt),
@@ -653,6 +657,65 @@ def main() -> int:
             f"2^{np.log2(top):.2f} of the 2^53 headroom")
         check(top > 2 ** 50, f"the {p} headroom case did not fill the f64 "
               f"sums")
+    # the same on the narrow kernel's tensor-core routes, the plan pinned
+    # or the planner's: f32/f32 at beta 9 on the f16 MMA (the bf16 plans
+    # stop at 8), bf16/f64 at td (21 pairs on a diagonal: past 2^24 grid
+    # units, so the kernel's f32 groups of 16 MMA results must close into
+    # the f64 sum before the diagonal ends), f32/f64 on DMMA at dd (near
+    # 2^53).  A normalized slice is an integer times 2^-beta, so a
+    # diagonal's grid unit is 2^(-2 beta).  Each: kernel == plain, and the
+    # plain version's sums in its accumulator == the same dots summed
+    # exactly on the host
+    for p, (sdt, adt), pin, floor in (
+            ("dd", ("float32", "float32"), dict(bk=16, beta=9, n_slices=4),
+             2 ** 23),
+            ("td", ("bfloat16", "float64"), None, 2 ** 24),
+            ("dd", ("float32", "float64"), None, 2 ** 51)):
+        if pin is None:
+            plan, pkw = oz_plan_kw(128, 64, 128, p, sdt, adt)
+            pin = dict(bk=plan.bk, beta=plan.slice_beta,
+                       n_slices=plan.n_slices)
+        pkw = dict(pin, slice_dtype_name=sdt, acc_dtype_name=adt)
+        bt, ns, v = pin["beta"], pin["n_slices"], ozgemm.SLICE_PAIRS[sdt, adt]
+        check(pin["bk"] == 16, f"the {sdt}/{adt} headroom case's plan {pin}")
+        a = headroom_operand((128, 64), bt, 1, dev, p)
+        b = headroom_operand((64, 128), bt, 2, dev, p)
+        name = narrow_name(p, sdt, adt)
+        hold(name, f"headroom 128x64x128 (digits 2^(beta-1) - 1, beta={bt}, "
+             f"n_slices={ns})",
+             ozgemm.ozgemm_kernel_call(*mp.limbs(a), *mp.limbs(b), **pkw),
+             ozgemm.ozgemm_plain(a, b, **pkw))
+        sk = dict(bk=16, beta=bt, n_slices=ns, variant=v)
+        wa, _ = ozslice.ozslice_plain(a, rows=True, **sk)
+        wb, _ = ozslice.ozslice_plain(b, rows=False, **sk)
+        top, one_f32 = 0.0, True
+        for j in range(4):
+            sa = [wa[0, j, i] for i in range(ns)]
+            sb = [wb[0, j, i].T for i in range(ns)]
+            ha = [x.cpu().double().numpy().astype(np.longdouble) for x in sa]
+            hb = [x.cpu().double().numpy().astype(np.longdouble) for x in sb]
+            f32 = dict(diagonal_sums(sa, sb, ns, False, torch.float32))
+            for d, dsum in diagonal_sums(sa, sb, ns, False,
+                                         getattr(torch, adt)):
+                exact = sum(ha[i] @ hb[d - i]
+                            for i in range(max(0, d - ns + 1),
+                                           min(d, ns - 1) + 1))
+                check(np.array_equal(
+                    dsum.cpu().double().numpy().astype(np.longdouble),
+                    exact), f"{name} headroom diagonal {d} of slab {j}: the "
+                    f"{adt} sum is not the exact one")
+                one_f32 &= np.array_equal(
+                    f32[d].cpu().double().numpy().astype(np.longdouble),
+                    exact)
+                top = max(top, float(np.abs(exact).max()) * 2.0 ** (2 * bt))
+        ctx = "" if adt == "float32" else (
+            f" (one f32 sum per diagonal, as context: "
+            f"{'exact' if one_f32 else 'rounded'} on these digits)")
+        log(f"phase 2: {name} headroom case: every {adt} diagonal sum equals "
+            f"its exact value; largest {top:.0f} grid units = "
+            f"2^{np.log2(top):.2f}{ctx}")
+        check(top > floor, f"the {name} headroom case did not reach "
+              f"2^{np.log2(floor):.0f} grid units")
     # the elementwise kernels on the SDP loop's shapes: a Cholesky column
     # (div by a broadcast pivot), a triangular-solve row (a broadcast row
     # times a block), the pairwise product (4-D broadcast), the sums
@@ -1091,15 +1154,19 @@ def main() -> int:
                                                  if narrow else 0))
                               + (1 if narrow else 0))
                    + n * n * (2 * tier_mul_ops(k) + add_ops(k)))
-        if adt == "float64" and narrow:
-            f64_ops += dots  # DFMA on the widened slices
-            dot_ms = 0.0
-        elif not narrow:
-            dot_ms = dots / DMMA_FMA_PER_S * 1e3
-        elif sdt == "bfloat16":
+        if sdt in ("float64", "float32") and adt == "float64":
+            dot_ms = dots / DMMA_FMA_PER_S * 1e3  # f64 tensor cores
+        else:  # bf16 or f16 (f32/f32's slices are f16-held) MMAs
             dot_ms = 2 * dots / BF16_TC_PEAK * 1e3
-        else:
-            dot_ms = dots / F32_INSTR_PER_S * 1e3
+        if (sdt, adt) == ("bfloat16", "float64"):
+            # a DADD per output for each f32 group a diagonal closes into
+            # its f64 sum (none where one group holds the diagonal)
+            cap = ozgemm.f32_group(plan.slice_beta)
+            per_pair = ozslice.kdepth(plan.bk, 2) // 16
+            f64_ops += slabs * sum(
+                -(-r // cap) if r > cap else 0 for r in (
+                    per_pair * len(range(max(0, d - s_n + 1), min(d + 1, s_n)))
+                    for d in range(s_n)))
         b = bound(f64_ops, 8 * k * 4 * n * n + 8 * 2 * k)
         by = "operations" if dot_ms >= b[0] else b[1]
         return (max(b[0], dot_ms), by, dot_ms,

@@ -30,7 +30,7 @@ __all__ = ["ozaki_gemm", "slice_count", "slice_bits", "slice_params",
 _P_ACC = {torch.float64: 53, torch.float32: 24}
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32,
-           "bfloat16": torch.bfloat16}
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def as_dtype(x) -> torch.dtype:

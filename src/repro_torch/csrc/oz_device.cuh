@@ -1,12 +1,15 @@
 // Pieces shared by the three builds of kernel #2, the fused Ozaki-slice
 // GEMM: the slicing pre-pass (csrc/ozslice.cu) and the two GEMMs on its
-// workspace (csrc/ozgemm.cu: f64 slices; csrc/ozgemm_narrow.cu: bf16/f32
-// slices).  The anchor, one slice step, the slice types, the workspace
-// geometry, the staged copy of one slab into shared memory, the diagonal
-// fold and the drain's epilogue, each repeating the rounding sequence of the
-// plain versions (repro_torch/kernels/ozslice.py, ozgemm.py,
-// core/ozaki.py) at KLIMBS limbs.
+// workspace (csrc/ozgemm.cu: f64 slices; csrc/ozgemm_narrow.cu: bf16, f16
+// and f32 slices).  The anchor, one slice step, the slice types, the
+// workspace geometry, the staged copy of one slab into shared memory, the
+// pair dots on the f64 tensor cores, the diagonal fold and the drain's
+// epilogue, each repeating the rounding sequence of the plain versions
+// (repro_torch/kernels/ozslice.py, ozgemm.py, core/ozaki.py) at KLIMBS
+// limbs.
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -37,7 +40,8 @@ constexpr int BM = 64, BN = 64;
 constexpr int kSmemLimit = 232448;
 
 // The slice types (slice type / accumulator type); the numbering is the
-// wrapper's.  kF64 is csrc/ozgemm.cu's f64-slice kernel.
+// wrapper's.  kF64 is csrc/ozgemm.cu's f64-slice kernel.  kF32F32 stores
+// its <= 11-bit slices as f16, so it also runs the wrapper's f16/f32 pair.
 enum Variant { kF64 = -1, kBf16F32 = 0, kF32F32 = 1, kBf16F64 = 2, kF32F64 = 3 };
 
 // Bytes of one slice element in the workspace and in shared memory: f64;
@@ -55,7 +59,8 @@ __host__ __device__ constexpr int kdepth(int bk, int v) {
 
 // The row stride of a slice in shared memory, in elements: the slab depth
 // plus 32 bytes (f64) or 8 elements (narrow), so that the fragment loads
-// of eight rows take the fewest wavefronts.
+// of eight rows take the fewest wavefronts (the f32 slices of f32/f64 are
+// loaded two K values a lane, 8 bytes, as the f64 ones are).
 __host__ __device__ constexpr int kstride(int bk, int v) {
   return kdepth(bk, v) + (v == kF64 ? 4 : 8);
 }
@@ -72,14 +77,9 @@ __host__ __device__ inline int stage_bytes(int bk, int n_slices, int variant) {
 }
 
 // Stages in flight: two (slab j + 1 lands while slab j is dotted and
-// folded) where two fit a block's shared memory, for the f64 and bf16/f32
-// kernels; one for the FMA variants, whose dot loops ran slower with two
-// on the H100.
+// folded) where two fit a block's shared memory, else one.
 __host__ __device__ inline int stages(int bk, int n_slices, int variant) {
-  return (variant == kF64 || variant == kBf16F32) &&
-                 2 * stage_bytes(bk, n_slices, variant) <= kSmemLimit
-             ? 2
-             : 1;
+  return 2 * stage_bytes(bk, n_slices, variant) <= kSmemLimit ? 2 : 1;
 }
 
 // Shared memory one CTA asks for.  The one count for both GEMMs; the
@@ -293,8 +293,9 @@ __device__ __forceinline__ void drain_one(const double (&acc)[K], const Scalars 
 // 8 outputs a thread) for the f64 kernel at dd, whose folds want the
 // warps to hide their latency and whose 128 registers a thread hold them;
 // NT = 4 (8 warps, 16 outputs a thread) otherwise: the wider tiers'
-// accumulators need the registers, and the bf16 kernel at dd spills
-// within 128 (its scales and the fragments of two pairs in flight).
+// accumulators need the registers, and the narrow kernels at dd spill
+// within 128 (their scales beside the fragments of two pairs in flight;
+// f32/f64's DMMA loop too, which is otherwise the f64 kernel's).
 __host__ __device__ constexpr int nt_of(int v) {
   return K == 2 && v == kF64 ? 2 : 4;
 }
@@ -310,6 +311,92 @@ __device__ __forceinline__ int frag_row(int i) {
 template <int NT>
 __device__ __forceinline__ int frag_col(int jj) {
   return 8 * NT * (threadIdx.x / 128) + 8 * (jj / 2) + 2 * (threadIdx.x % 4) + jj % 2;
+}
+
+// Pair dots taken at a time in the GEMMs' pair loops: a warp keeps
+// PAIRS * NT independent MMAs in flight (every partial sum is exact, so
+// any order gives the same bits).
+constexpr int PAIRS = 2;
+
+// One m16n8k4 tile on the f64 tensor cores: (d0, d1, d2, d3) += A B,
+// where a0 = A[g][q], a1 = A[g + 8][q], b = B[q][g], and (d0, d1) are
+// C[g][2q], C[g][2q + 1], (d2, d3) C[g + 8][2q], C[g + 8][2q + 1].
+__device__ __forceinline__ void dmma(double &d0, double &d1, double &d2, double &d3,
+                                     double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The w-th K value of what one fragment load gave a lane, widened to f64
+// (exactly: every f32 slice is an f64).
+__device__ __forceinline__ double kval(double x, int) { return x; }
+__device__ __forceinline__ double kval(float2 x, int w) { return w ? x.y : x.x; }
+
+// The DMMA dots of U pairs (s, d - s), ..., pair u into ds[u], from slices
+// of type T (f64, or f32 widened as they load) in shared memory.  A lane
+// loads W = 8 / sizeof(T) consecutive K values of each fragment element at
+// once (f32: a float2) and issues W MMAs; the W MMAs take K values kb + Wq
+// + w in the k slot q of lane 4g + q, the same permutation of K for A and
+// for B, so a tile still sums every product of its 4W-deep step once.
+template <typename T, int NT, int U>
+__device__ __forceinline__ void f64_pairs(double (&ds)[U][2][2 * NT], const T *sa,
+                                          const T *sb, int s, int d, int ks, int kp) {
+  constexpr int W = 8 / (int)sizeof(T);
+  using L = typename std::conditional<W == 1, double, float2>::type;
+  const int g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
+  const int wr = 16 * (threadIdx.x / 32 % 4), wc = 8 * NT * (threadIdx.x / 128);
+  for (int kb = 0; kb < kp; kb += 4 * W) {
+    L a[U][2], b[U][NT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T *pa = sa + ((size_t)(s + u) * BM + wr + g) * ks + kb + W * q;
+      const T *pb = sb + ((size_t)(d - s - u) * BN + wc + g) * ks + kb + W * q;
+      a[u][0] = *reinterpret_cast<const L *>(pa);
+      a[u][1] = *reinterpret_cast<const L *>(pa + 8 * ks);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[u][j] = *reinterpret_cast<const L *>(pb + 8 * j * ks);
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          dmma(ds[u][0][2 * j], ds[u][0][2 * j + 1], ds[u][1][2 * j], ds[u][1][2 * j + 1],
+               kval(a[u][0], w), kval(a[u][1], w), kval(b[u][j], w));
+  }
+}
+
+// One diagonal's exact f64 sums on the f64 tensor cores: its pairs s_lo ..
+// s_hi, PAIRS at a time, each into its own set of C fragments, the sets
+// added at the end.
+template <typename T, int NT>
+__device__ __forceinline__ void dmma_diagonal(double (&dsum)[2][2 * NT], const T *sa,
+                                              const T *sb, int s_lo, int s_hi, int d, int ks,
+                                              int kp) {
+  double ds[PAIRS][2][2 * NT];
+#pragma unroll
+  for (int u = 0; u < PAIRS; ++u)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2 * NT; ++jj) ds[u][i][jj] = 0.0;
+  int s = s_lo;
+  for (; s + PAIRS <= s_hi + 1; s += PAIRS) f64_pairs<T, NT, PAIRS>(ds, sa, sb, s, d, ks, kp);
+  for (; s <= s_hi; ++s)
+    f64_pairs<T, NT, 1>(reinterpret_cast<double(&)[1][2][2 * NT]>(ds[0]), sa, sb, s, d, ks,
+                        kp);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+      dsum[i][jj] = ds[0][i][jj];
+#pragma unroll
+      for (int u = 1; u < PAIRS; ++u) dsum[i][jj] = dd::add(dsum[i][jj], ds[u][i][jj]);
+    }
 }
 
 // The accumulators at the start of a K panel: zero, or (kLoadAcc) the

@@ -24,7 +24,9 @@
 // agrees with this kernel bit for bit.
 //
 // The pair dots run on the f64 tensor cores: mma.sync.m16n8k4 f64, each
-// diagonal summed in C fragments (two sets, added at the end).  Every pair product has at most
+// diagonal summed in C fragments (two sets, added at the end; the loop is
+// oz_device.cuh dmma_diagonal, which csrc/ozgemm_narrow.cu runs on f32
+// slices too).  Every pair product has at most
 // 2*beta bits and every partial sum of a diagonal lies on the diagonal's
 // common grid within 53 bits (2*beta + ceil(log2 bk) + ceil(log2 n_slices)
 // <= 53, slice_params' headroom), so each is exact, and the f64 tensor
@@ -66,77 +68,21 @@ using namespace oz;
 
 constexpr int NT = nt_of(kF64), THREADS = threads_of(kF64);
 
-// One m16n8k4 tile on the f64 tensor cores: (d0, d1, d2, d3) += A B,
-// where a0 = A[g][q], a1 = A[g + 8][q], b = B[q][g], and (d0, d1) are
-// C[g][2q], C[g][2q + 1], (d2, d3) C[g + 8][2q], C[g + 8][2q + 1].
-__device__ __forceinline__ void dmma(double &d0, double &d1, double &d2, double &d3,
-                                     double a0, double a1, double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
-// Pairs taken at a time, each into its own set of C fragments: a warp
-// keeps PAIRS * NT independent accumulations in flight, and the sets add
-// exactly at the diagonal's end (every partial sum is exact).
-constexpr int PAIRS = 2;
-
-// The dots of U pairs (s, d - s), ..., pair u into ds[u].
-template <int U>
-__device__ __forceinline__ void f64_pairs(double (&ds)[U][2][2 * NT], const double *sa,
-                                          const double *sb, int s, int d, int ks, int kp) {
-  const int g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
-  const int wr = 16 * (threadIdx.x / 32 % 4), wc = 8 * NT * (threadIdx.x / 128);
-  for (int kb = 0; kb < kp; kb += 4) {
-    double a[U][2], b[U][NT];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const double *pa = sa + ((size_t)(s + u) * BM + wr + g) * ks + kb + q;
-      const double *pb = sb + ((size_t)(d - s - u) * BN + wc + g) * ks + kb + q;
-      a[u][0] = pa[0];
-      a[u][1] = pa[8 * ks];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) b[u][j] = pb[8 * j * ks];
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        dmma(ds[u][0][2 * j], ds[u][0][2 * j + 1], ds[u][1][2 * j], ds[u][1][2 * j + 1],
-             a[u][0], a[u][1], b[u][j]);
-  }
-}
-
 // One slab from one stage: each diagonal's exact f64 sum on the tensor
-// cores, folded once, most significant first.
+// cores (oz_device.cuh dmma_diagonal), folded once, most significant
+// first.
 __device__ __forceinline__ void slab_update(double (&acc)[2][2 * NT][K], const double *stage,
                                             int ks, int kp, int n_slices, int n_diag) {
   const double *sa = stage;                            // [n_slices][BM][ks]
   const double *sb = sa + (size_t)n_slices * BM * ks;  // [n_slices][BN][ks]
   for (int d = 0; d < n_diag; ++d) {
-    double ds[PAIRS][2][2 * NT];
-#pragma unroll
-    for (int u = 0; u < PAIRS; ++u)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2 * NT; ++jj) ds[u][i][jj] = 0.0;
-    const int s_lo = max(0, d - n_slices + 1), s_hi = min(d, n_slices - 1);
-    int s = s_lo;
-    for (; s + PAIRS <= s_hi + 1; s += PAIRS) f64_pairs<PAIRS>(ds, sa, sb, s, d, ks, kp);
-    for (; s <= s_hi; ++s)
-      f64_pairs<1>(reinterpret_cast<double(&)[1][2][2 * NT]>(ds[0]), sa, sb, s, d, ks, kp);
+    double dsum[2][2 * NT];
+    dmma_diagonal<double, NT>(dsum, sa, sb, max(0, d - n_slices + 1), min(d, n_slices - 1), d,
+                              ks, kp);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 2 * NT; ++jj) {
-        double dsum = ds[0][i][jj];
-#pragma unroll
-        for (int u = 1; u < PAIRS; ++u) dsum = dd::add(dsum, ds[u][i][jj]);
-        fold(acc[i][jj], dsum);
-      }
+      for (int jj = 0; jj < 2 * NT; ++jj) fold(acc[i][jj], dsum[i][jj]);
   }
 }
 

@@ -1,5 +1,5 @@
 // Kernel #2 with narrow slices: the fused Ozaki-slice GEMM at KLIMBS limbs
-// (2 = dd, 3 = td, 4 = qd) whose slices are bf16 or f32, the Rgemm
+// (2 = dd, 3 = td, 4 = qd) whose slices are bf16, f16 or f32, the Rgemm
 // epilogue fused into its drain, with an optional batch grid axis.
 //
 // Replaces the narrow branch of the Pallas kernel repro/kernels/ozgemm.py
@@ -21,27 +21,41 @@
 // in repro_torch/kernels/ozgemm.py with the same slice and accumulator
 // types.
 //
-// The pair dots, by variant (slice type / accumulator type):
-//   * bf16 / f32: the tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> f32
-//     on fragments loaded with ldmatrix, two pairs at a time, each MMA
-//     issued with a zero C fragment and its result added into the
-//     diagonal's running f32 sum with an IEEE add.  One MMA sums 16
-//     products of at most 2*beta = 16 bits on one grid (at most 20 bits, so
-//     exact however the unit aligns them), and every partial sum of a
-//     diagonal fits the f32 significand by the slice_params headroom
-//     2*beta + ceil(log2 bk) + ceil(log2 n_slices) <= 24: every order gives
-//     the plain version's bits.  Nothing leans on how the tensor core
-//     rounds inside an accumulation it was never asked to make.
-//   * f32 / f32: FFMA on the CUDA cores (exact products, exact sums by the
-//     same headroom).  beta <= 11 with an f32 accumulator, so the slices are
-//     kept as f16, which holds every one of them exactly.
-//   * bf16 / f64 and f32 / f64: DFMA on the slices widened exactly to f64.
+// The pair dots, by variant (slice type / accumulator type), all on the
+// tensor cores:
+//   * bf16 / f32, and f32 / f32 (whose <= 11-bit slices the workspace
+//     holds as f16, exactly; the wrapper's f16 / f32 pair is the same
+//     code): mma.sync.m16n8k16 bf16 x bf16 -> f32, or f16 x f16 -> f32, on
+//     fragments loaded with ldmatrix, two pairs at a time, each MMA issued
+//     with a zero C fragment and its result added into the diagonal's
+//     running f32 sum with an IEEE add.  One MMA sums at most 16 products
+//     of at most 2*beta bits on one grid, and its sum, like every partial
+//     sum of a diagonal, fits the f32 significand by the slice_params
+//     headroom 2*beta + ceil(log2 bk) + ceil(log2 n_slices) <= 24: every
+//     order gives the plain version's bits.  Nothing leans on how the
+//     tensor core rounds inside an accumulation it was never asked to
+//     make.  bf16 plans stop at beta 8; f16 ones reach 11, and
+//     chip_smoke.py phase 2 holds a beta = 9 case on the f16 MMA exact on
+//     the card.
+//   * bf16 / f64: the same bf16 MMAs and IEEE f32 adds, in f32 groups of
+//     at most `group` MMA results (kernels/ozgemm.py f32_group:
+//     group * 16 * 2^(2*beta) <= 2^24, so each group's sum is exact in
+//     f32), each closed group added into the diagonal's f64 sum with one
+//     IEEE f64 add (exact by the f64 headroom, the same sum <= 53).  A
+//     diagonal whose MMA results fit one group (every diagonal at dd: bk
+//     16, 15 slices, group 16) runs bf16/f32's loop and one widening.
+//   * f32 / f64: the f64 tensor cores, mma.sync.m16n8k4 (oz_device.cuh
+//     f64_pairs, csrc/ozgemm.cu's loop) on the f32 slices widened exactly
+//     to f64 as they load, the diagonal summed through the C fragments
+//     (exact by the f64 headroom, as for f64 slices).
 //
-// Bound on the H100: the tensor-core dots are n_pairs * 2 * m * n * bk
-// flops per slab at 989e12 bf16 flop/s; the f64 work of the rescale and
-// folds (three times the f64-slice kernel's diagonals) is the larger part
-// at every tier, against 17e12 f64 instructions per second (chip_smoke.py
-// counts both, the pre-pass's extraction in the f64 part).
+// Bound on the H100: the 16-bit dots are n_pairs * 2 * m * n * bk flops
+// per slab at 989e12 flop/s, the f32 / f64 dots n_pairs * m * n * bk
+// multiply-adds at DMMA's 33.5e12 per second; the f64 work of the rescale
+// and folds (three times the f64-slice kernel's diagonals for 16-bit
+// slices; bf16 / f64 adds a DADD per f32 group) is the larger part at
+// every tier for 16-bit slices, against 17e12 f64 instructions per second
+// (chip_smoke.py counts both, the pre-pass's extraction in the f64 part).
 //
 // Design: one CTA of 8 warps per 64x64 output tile (oz_device.cuh
 // nt_of), every thread in every phase.  The
@@ -49,8 +63,8 @@
 // stage per slab (a stage being the slab's slices of the tile's 64 rows
 // and 64 columns, K contiguous and padded by 8 elements so that the
 // fragment loads hit 32 distinct banks, and their scales): two stages
-// where two fit (dd), so slab j + 1 lands while slab j is dotted and
-// folded, else one.  Warp w owns rows 16*(w % 4) .. +16 and NT m16n8
+// where two fit, so slab j + 1 lands while slab j is dotted and folded,
+// else one.  Warp w owns rows 16*(w % 4) .. +16 and NT m16n8
 // tiles from column 8*NT*(w / 4) on; each thread holds its 4*NT outputs in
 // the mma C-fragment layout (oz_device.cuh frag_row/frag_col), the same
 // for every variant and for ozgemm.cu, so the rescale, fold and drain are
@@ -62,8 +76,6 @@
 
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "oz_device.cuh"
 
 #ifndef OZ_VARIANT
@@ -74,19 +86,23 @@ namespace {
 
 using namespace oz;
 
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
-__device__ __forceinline__ float widen(float x) { return x; }
-
-// D = A * B + 0 for one m16n8k16 tile (bf16 in, f32 out).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
+// D = A * B + 0 for one m16n8k16 tile of 16-bit slices (bf16 or f16 in,
+// f32 out).
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1, __nv_bfloat16) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.0f));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1, __half) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
 // Four 8x8 b16 matrices from shared memory, lane l giving the address of
@@ -99,17 +115,46 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void *row) {
                : "r"(a));
 }
 
-// Pair dots taken U pairs at a time in the bf16 variant's pair loop.
-constexpr int PAIRS = 2;
+// A diagonal summed in one f32 group (an f32 accumulator, or a bf16 / f64
+// diagonal whose MMA results fit one): nothing to close.
+template <int NT>
+struct OneGroup {
+  template <int U>
+  __device__ __forceinline__ void step(float (&)[2][2 * NT]) {}
+};
 
-// The bf16 dots of U pairs (s, d - s), (s + 1, d - s - 1), ... added into
-// the diagonal's f32 sums: every fragment loaded first, then every MMA,
-// then every add, so that a warp keeps U * NT MMAs in flight (the sums
-// are exact in any order).
-template <int NT, int U>
-__device__ __forceinline__ void bf16_pairs(float (&ds)[2][2 * NT], const __nv_bfloat16 *sa,
-                                           const __nv_bfloat16 *sb, int s, int d, int ks,
-                                           int kp) {
+// A diagonal's sums with an f64 accumulator (bf16 / f64): f32 groups of at
+// most `cap` MMA results (n so far), each closed into the f64 sums with
+// an IEEE f64 add.  cap >= PAIRS (kernels/ozgemm.py f32_group), so a step
+// of U <= PAIRS results never overfills a group.
+template <int NT>
+struct F64Groups {
+  double sum[2][2 * NT];
+  int cap, n;
+  __device__ __forceinline__ void close(float (&gs)[2][2 * NT]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2 * NT; ++jj) {
+        sum[i][jj] = __dadd_rn(sum[i][jj], (double)gs[i][jj]);
+        gs[i][jj] = 0.0f;
+      }
+    n = 0;
+  }
+  template <int U>
+  __device__ __forceinline__ void step(float (&gs)[2][2 * NT]) {
+    n += U;
+    if (n + PAIRS > cap) close(gs);
+  }
+};
+
+// The 16-bit dots of U pairs (s, d - s), (s + 1, d - s - 1), ... added
+// into the diagonal's f32 sums gs: per 16-deep step, every fragment loaded
+// first, then every MMA, then every add, so that a warp keeps U * NT MMAs
+// in flight (the sums are exact in any order); then the group's step.
+template <typename T, int NT, int U, typename G>
+__device__ __forceinline__ void pairs16(float (&gs)[2][2 * NT], G &grp, const T *sa,
+                                        const T *sb, int s, int d, int ks, int kp) {
   // ldmatrix rows: A's m16 x k16 block as (rows 0-7, 8-15) x (k 0-7,
   // 8-15); B's n8 tiles two at a time as (tile j, j + 1) x (k 0-7, 8-15)
   const int l = threadIdx.x % 32;
@@ -135,35 +180,78 @@ __device__ __forceinline__ void bf16_pairs(float (&ds)[2][2 * NT], const __nv_bf
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_bf16(p[u][j], a[u][0], a[u][1], a[u][2], a[u][3], b[u][j][0], b[u][j][1]);
+      for (int j = 0; j < NT; ++j) mma16(p[u][j], a[u], b[u][j][0], b[u][j][1], T());
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        ds[0][2 * j] = __fadd_rn(ds[0][2 * j], p[u][j][0]);
-        ds[0][2 * j + 1] = __fadd_rn(ds[0][2 * j + 1], p[u][j][1]);
-        ds[1][2 * j] = __fadd_rn(ds[1][2 * j], p[u][j][2]);
-        ds[1][2 * j + 1] = __fadd_rn(ds[1][2 * j + 1], p[u][j][3]);
+        gs[0][2 * j] = __fadd_rn(gs[0][2 * j], p[u][j][0]);
+        gs[0][2 * j + 1] = __fadd_rn(gs[0][2 * j + 1], p[u][j][1]);
+        gs[1][2 * j] = __fadd_rn(gs[1][2 * j], p[u][j][2]);
+        gs[1][2 * j + 1] = __fadd_rn(gs[1][2 * j + 1], p[u][j][3]);
       }
+    grp.template step<U>(gs);
   }
 }
 
-// One slab from one stage: each diagonal's exact sum in the accumulator
-// type, rescaled and folded once, most significant first.
+// The 16-bit dots of a diagonal's pairs s_lo .. s_hi, PAIRS at a time,
+// into gs (and the groups of grp).
+template <typename T, int NT, typename G>
+__device__ __forceinline__ void mma16_pairs(float (&gs)[2][2 * NT], G &grp, const T *sa,
+                                            const T *sb, int s_lo, int s_hi, int d, int ks,
+                                            int kp) {
+  int s = s_lo;
+  for (; s + PAIRS <= s_hi + 1; s += PAIRS) pairs16<T, NT, PAIRS>(gs, grp, sa, sb, s, d, ks, kp);
+  for (; s <= s_hi; ++s) pairs16<T, NT, 1>(gs, grp, sa, sb, s, d, ks, kp);
+}
+
+// One diagonal's exact sums of 16-bit slice dots, as f64: in one f32 sum
+// (an f32 accumulator, or a bf16 / f64 diagonal whose MMA results fit one
+// f32 group: every diagonal at dd), else in f32 groups closed into f64.
+template <int V, int NT>
+__device__ __forceinline__ void mma16_diagonal(double (&dsum)[2][2 * NT],
+                                               const typename Store<V>::T *sa,
+                                               const typename Store<V>::T *sb, int s_lo,
+                                               int s_hi, int d, int ks, int kp, int group) {
+  float gs[2][2 * NT];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) gs[i][jj] = 0.0f;
+  if (V != kBf16F64 || (s_hi - s_lo + 1) * (kp / 16) <= group) {
+    OneGroup<NT> one;
+    mma16_pairs<typename Store<V>::T, NT>(gs, one, sa, sb, s_lo, s_hi, d, ks, kp);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2 * NT; ++jj) dsum[i][jj] = (double)gs[i][jj];
+  } else if constexpr (V == kBf16F64) {
+    F64Groups<NT> grp;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2 * NT; ++jj) grp.sum[i][jj] = 0.0;
+    grp.cap = group;
+    grp.n = 0;
+    mma16_pairs<typename Store<V>::T, NT>(gs, grp, sa, sb, s_lo, s_hi, d, ks, kp);
+    if (grp.n > 0) grp.close(gs);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 2 * NT; ++jj) dsum[i][jj] = grp.sum[i][jj];
+  }
+}
+
+// One slab from one stage: each diagonal's exact sum, rescaled and folded
+// once, most significant first.
 template <int V, int NT>
 __device__ __forceinline__ void slab_update(double (&acc)[2][2 * NT][K], const unsigned char *stage,
-                                            int ks, int kp, int kd, int beta, int n_slices,
-                                            int n_diag) {
+                                            int ks, int kp, int beta, int n_slices, int n_diag,
+                                            int group) {
   using T = typename Store<V>::T;
-  using Acc = typename std::conditional<V == kBf16F32 || V == kF32F32, float,
-                                        double>::type;
   const T *sa = reinterpret_cast<const T *>(stage);  // [n_slices][BM][ks]
   const T *sb = sa + (size_t)n_slices * BM * ks;     // [n_slices][BN][ks]
   const double *sc = reinterpret_cast<const double *>(sb + (size_t)n_slices * BN * ks);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const int wr = 16 * (warp % 4), wc = 8 * NT * (warp / 4);
   double scab[2][2 * NT];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -171,41 +259,18 @@ __device__ __forceinline__ void slab_update(double (&acc)[2][2 * NT][K], const u
     for (int jj = 0; jj < 2 * NT; ++jj)
       scab[i][jj] = dd::mul(sc[frag_row(i)], sc[BM + frag_col<NT>(jj)]);
   for (int d = 0; d < n_diag; ++d) {
-    Acc ds[2][2 * NT];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2 * NT; ++jj) ds[i][jj] = 0;
     const int s_lo = max(0, d - n_slices + 1), s_hi = min(d, n_slices - 1);
-    if constexpr (V == kBf16F32) {
-      int s = s_lo;
-      for (; s + PAIRS <= s_hi + 1; s += PAIRS) bf16_pairs<NT, PAIRS>(ds, sa, sb, s, d, ks, kp);
-      for (; s <= s_hi; ++s) bf16_pairs<NT, 1>(ds, sa, sb, s, d, ks, kp);
-    } else {
-      for (int s = s_lo; s <= s_hi; ++s) {
-        const T *pa = sa + ((size_t)s * BM + wr + g) * ks;
-        const T *pb = sb + ((size_t)(d - s) * BN + wc + g) * ks;
-        // rows g, g + 8 of the warp's block; columns 8(jj/2) + 2q + jj%2
-        for (int kk = 0; kk < kd; ++kk) {
-          Acc av[2], bv[2 * NT];
-          av[0] = (Acc)widen(pa[kk]);
-          av[1] = (Acc)widen(pa[8 * ks + kk]);
-#pragma unroll
-          for (int jj = 0; jj < 2 * NT; ++jj)
-            bv[jj] = (Acc)widen(pb[(size_t)(8 * (jj / 2) + 2 * q + jj % 2 - g) * ks + kk]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int jj = 0; jj < 2 * NT; ++jj) ds[i][jj] = fma(av[i], bv[jj], ds[i][jj]);
-        }
-      }
-    }
+    double dsum[2][2 * NT];
+    if constexpr (V == kF32F64)
+      dmma_diagonal<T, NT>(dsum, sa, sb, s_lo, s_hi, d, ks, kp);
+    else
+      mma16_diagonal<V, NT>(dsum, sa, sb, s_lo, s_hi, d, ks, kp, group);
     const double p2 = dd::pow2(-d * beta);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int jj = 0; jj < 2 * NT; ++jj)
-        fold(acc[i][jj], dd::mul((double)ds[i][jj], dd::mul(scab[i][jj], p2)));
+        fold(acc[i][jj], dd::mul(dsum[i][jj], dd::mul(scab[i][jj], p2)));
   }
 }
 
@@ -216,7 +281,7 @@ ozgemm_narrow_kernel(const typename Store<V>::T *__restrict__ wa,
                      const typename Store<V>::T *__restrict__ wb,
                      const double *__restrict__ scb, const double *__restrict__ alpha,
                      const double *__restrict__ beta_s, In c, Out o, int m, int n,
-                     int k, int nslab, int bk, int beta, int n_slices, int n_diag,
+                     int nslab, int bk, int beta, int n_slices, int n_diag, int group,
                      int epilogue, int flags, long long swa, long long swb,
                      long long stride_c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -253,9 +318,8 @@ ozgemm_narrow_kernel(const typename Store<V>::T *__restrict__ wa,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int kd = min(bk, k - j * bk);
-    slab_update<V, NT>(acc, smem_raw + (STAGES == 2 ? (j & 1) * sbytes : 0), ks, kp, kd, beta,
-                   n_slices, n_diag);
+    slab_update<V, NT>(acc, smem_raw + (STAGES == 2 ? (j & 1) * sbytes : 0), ks, kp, beta,
+                       n_slices, n_diag, group);
     __syncthreads();
   }
   drain_tile<NT>(acc, alpha, beta_s, epilogue, flags, c,
@@ -273,27 +337,27 @@ extern "C" int ozgemm_narrow_smem_bytes(int bk, int n_slices, int variant) {
 // out = epilogue(A @ B) at KLIMBS limbs over `batch` entries, from the
 // pre-pass's workspaces of A and B (csrc/ozslice.cu) with the slices of
 // `variant`, which must be this library's OZ_VARIANT: wa, sca and wb, scb
-// hold the slices and scales of `nslab` K slabs of depth bk (the panel
-// [k0, k0 + k), k its depth), entry z of A's at z * swa elements (0: one
-// workspace shared by every entry; its scales likewise), of B's at
-// z * swb.  c and o point at KLIMBS limb pointers (host arrays; c may hold
+// hold the slices and scales of `nslab` K slabs of depth bk, entry z of
+// A's at z * swa elements (0: one workspace shared by every entry; its
+// scales likewise), of B's at z * swb.  c and o point at KLIMBS limb pointers (host arrays; c may hold
 // nulls unless the epilogue is 2 on the last panel); C and out (m, n) per
 // entry, row-major contiguous f64 on the device, entry z of C at
 // z * stride_c, of out at z * m * n.  alpha and beta_s point at KLIMBS
 // limbs each.  epilogue: 0 none, 1 alpha, 2 full.  flags (oz_device.cuh
 // PanelFlags): 1 start from the accumulator in out, 2 the last panel
-// (drain with the epilogue; otherwise store the raw accumulator).
-// Launches on `stream`; returns the launch's cudaGetLastError() (0 on
-// success).
+// (drain with the epilogue; otherwise store the raw accumulator).  group:
+// bf16 / f64 only, the MMA results one f32 group sums (kernels/ozgemm.py
+// f32_group, at least PAIRS).  Launches on `stream`; returns the launch's
+// cudaGetLastError() (0 on success).
 extern "C" int ozgemm_narrow(const void *wa, const double *sca, const void *wb,
                              const double *scb, const double *alpha,
                              const double *beta_s, const double *const *c,
-                             double *const *o, int m, int n, int k, int nslab,
-                             int batch, long long swa, long long swb,
-                             long long stride_c, int bk, int beta, int n_slices,
-                             int n_diag, int epilogue, int flags, int variant,
-                             cudaStream_t stream) {
-  if (n_slices < 1 || bk < 1 || nslab < 0 || variant != OZ_VARIANT)
+                             double *const *o, int m, int n, int nslab, int batch,
+                             long long swa, long long swb, long long stride_c, int bk,
+                             int beta, int n_slices, int n_diag, int epilogue, int flags,
+                             int variant, int group, cudaStream_t stream) {
+  if (n_slices < 1 || bk < 1 || nslab < 0 || variant != OZ_VARIANT ||
+      (variant == kBf16F64 && group < PAIRS))
     return (int)cudaErrorInvalidValue;
   using T = typename Store<OZ_VARIANT>::T;
   In ci;
@@ -314,6 +378,7 @@ extern "C" int ozgemm_narrow(const void *wa, const double *sca, const void *wb,
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
   kernel<<<grid, threads_of(OZ_VARIANT), smem, stream>>>(
       static_cast<const T *>(wa), sca, static_cast<const T *>(wb), scb, alpha, beta_s, ci,
-      oo, m, n, k, nslab, bk, beta, n_slices, n_diag, epilogue, flags, swa, swb, stride_c);
+      oo, m, n, nslab, bk, beta, n_slices, n_diag, group, epilogue, flags, swa, swb,
+      stride_c);
   return (int)cudaGetLastError();
 }

@@ -22,16 +22,21 @@ in slab order either way, so the bits do not change.
 On a CUDA tensor the wrapper launches hand-written Hopper kernels at 2, 3
 or 4 limbs: ``csrc/ozslice.cu``, then ``csrc/ozgemm.cu`` for f64 slices
 (pair dots on the f64 tensor cores) or ``csrc/ozgemm_narrow.cu`` for
-narrow ones (bf16 pair dots on the tensor cores); see those files for
+narrow ones (bf16 and f16 pair dots on the 16-bit tensor cores, f32
+slices with an f64 accumulator on the f64 ones); see those files for
 their design and bound.  A failed launch raises; nothing falls back.  On
 a CPU tensor it runs ``ozgemm_plain``, the same algorithm as tensor ops on
 the plain pre-pass's workspace.  The two agree bit for bit on the card.
 
 The (slice, accumulator) pairs are the ones the reference's kernel takes
-from a plan (``SLICE_PAIRS``): f64/f64, bf16/f32, f32/f32, and bf16 or f32
-slices with an f64 accumulator (what ``make_plan(slice_dtype=...)`` alone
-gives: the plan keeps ``acc_dtype=None`` and the engine reads f64).  Any
-other pair raises ``ValueError``, on both devices.
+from a plan (``SLICE_PAIRS``): f64/f64, bf16/f32, f32/f32, f16/f32, and
+bf16 or f32 slices with an f64 accumulator (what
+``make_plan(slice_dtype=...)`` alone gives: the plan keeps
+``acc_dtype=None`` and the engine reads f64).  Any other pair raises
+``ValueError``, on both devices; the reference's planner also makes two
+the kernel refuses: f16/f64, whose beta reaches 22 so that the
+reference's f16 slices are rounded, and f64/f32, an f64 slice dot typed
+to f32.
 
 A, B and C may carry one leading batch axis (an operand without it is
 shared); on the card the batch is the kernel's third grid axis.
@@ -49,25 +54,28 @@ from .._device import common_device
 from ..core import mp
 from ..core.ozaki import _fold_diagonal_sum, as_dtype, diagonal_sums
 from . import _build
-from .ozslice import (STORAGE, kdepth, ozslice_call, ozslice_plain,
-                      rows_padded)
+from .ozslice import (CUDA_VARIANT, STORAGE, kdepth, ozslice_call,
+                      ozslice_plain, rows_padded)
 
 __all__ = ["ozgemm_kernel_call", "ozgemm_plain", "EPILOGUES", "launches",
            "SLICE_PAIRS", "VARIANTS", "SMEM_LIMIT", "smem_bytes",
-           "WORKSPACE_BYTES", "panel_slabs", "launch_shapes"]
+           "WORKSPACE_BYTES", "panel_slabs", "launch_shapes", "f32_group"]
 
 EPILOGUES = ("none", "alpha", "full")
 
-# (slice dtype, accumulator dtype) -> the narrow kernel's variant number
-# (csrc/ozgemm_narrow.cu), None for the f64-slice kernel (csrc/ozgemm.cu)
+# (slice dtype, accumulator dtype) -> the narrow variant's number
+# (csrc/ozgemm_narrow.cu, whose build ozslice.CUDA_VARIANT names), None for
+# the f64-slice kernel (csrc/ozgemm.cu)
 SLICE_PAIRS = {
-    ("float64", "float64"): None,
-    ("bfloat16", "float32"): 0,   # pair dots on the tensor cores
-    ("float32", "float32"): 1,    # FFMA
-    ("bfloat16", "float64"): 2,   # DFMA on the widened slices
-    ("float32", "float64"): 3,
+    ("float64", "float64"): None,  # DMMA (mma.sync m16n8k4)
+    ("bfloat16", "float32"): 0,    # bf16 mma.sync m16n8k16, f32 sums
+    ("float32", "float32"): 1,     # f16 mma.sync m16n8k16 (f16-held slices)
+    ("bfloat16", "float64"): 2,    # bf16 m16n8k16, f32 groups into f64 sums
+    ("float32", "float64"): 3,     # DMMA on the slices widened to f64
+    ("float16", "float32"): 4,     # variant 1's code and library
 }
-_SHORT = {"float64": "f64", "float32": "f32", "bfloat16": "bf16"}
+_SHORT = {"float64": "f64", "float32": "f32", "bfloat16": "bf16",
+          "float16": "f16"}
 VARIANTS = {v: f"{_SHORT[s]}/{_SHORT[a]}"
             for (s, a), v in SLICE_PAIRS.items() if v is not None}
 
@@ -97,15 +105,31 @@ def smem_bytes(bk, n_slices, slice_dtype_name="float64",
     repeated here so that CPU tensors are refused alike (chip_smoke.py
     holds the two equal on the card).  One stage holds a slab's slices of
     the CTA's 64 rows and 64 columns (rows padded by 32 bytes for f64, 8
-    elements for narrow slices) and the narrow scales; the f64 and
-    bf16/f32 kernels run two stages where two fit, the rest one."""
+    elements for narrow slices) and the narrow scales; every variant runs
+    two stages where two fit, else one."""
     variant = SLICE_PAIRS[slice_dtype_name, acc_dtype_name]
     ks = kdepth(bk, variant) + (4 if variant is None else 8)
     stage = n_slices * _TILE * ks * STORAGE[variant].itemsize
     if variant is not None:
         stage += _TILE * 8
-    two = variant in (None, 0) and 2 * stage <= SMEM_LIMIT
-    return (2 if two else 1) * stage
+    return (2 if 2 * stage <= SMEM_LIMIT else 1) * stage
+
+
+def f32_group(beta):
+    """bf16/f64: the MMA results (zero-C 16-deep dots of one slice pair)
+    that ``csrc/ozgemm_narrow.cu`` sums in one f32 group before it adds the
+    group into the diagonal's f64 sum: the largest G with ``G * 16 *
+    2^(2*beta) <= 2^24``, so that every partial sum of a group is exact in
+    f32 (each result is at most 16 products below 2^(2*beta) grid units).
+    At slab depth bk a pair dot is ``kdepth(bk) / 16`` results, so a group
+    holds ``G // (kdepth(bk) / 16)`` pairs: 16, 8, 4 at bk 16, 32, 64 and
+    beta 8, the largest pair counts with ``2*beta + ceil(log2 bk) +
+    ceil(log2 pairs) <= 24``."""
+    log2_g = 24 - 4 - 2 * beta
+    if log2_g < 1:  # the kernel adds two pairs' results at a time
+        raise ValueError(f"beta={beta}: an f32 group of bf16 MMA results "
+                         f"holds fewer than two")
+    return 2 ** log2_g
 
 
 def panel_slabs(nslab, entries_a, m, entries_b, n, bk, n_slices, variant,
@@ -279,11 +303,12 @@ def _launch(nl, a, b, alpha, beta_s, c, batch, *, bk, beta, n_slices,
     kp = kdepth(bk, variant)
 
     narrow = variant is not None
-    fn = _build.load("ozgemm_narrow", nl, variant).ozgemm_narrow if narrow \
+    cv = CUDA_VARIANT[variant]
+    fn = _build.load("ozgemm_narrow", nl, cv).ozgemm_narrow if narrow \
         else _build.load("ozgemm", nl).ozgemm
     fn.argtypes = [ctypes.c_void_p] * (8 if narrow else 6) + \
-        [ctypes.c_int] * (5 if narrow else 4) + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_int] * (7 if narrow else 5) + [ctypes.c_void_p]
+        [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_int] * (8 if narrow else 5) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     pkw = dict(bk=bk, beta=beta, n_slices=n_slices, variant=variant)
 
@@ -310,12 +335,11 @@ def _launch(nl, a, b, alpha, beta_s, c, batch, *, bk, beta, n_slices,
         args += [ptr(sc_alpha), ptr(sc_beta),
                  _build.pointers(c or [None] * nl), _build.pointers(out),
                  m, n]
-        args += [min(cnt * bk, k - p0 * bk), cnt] if narrow else [cnt]
-        args += [batch or 1, ws_stride(ea, m), ws_stride(eb, n),
+        args += [cnt, batch or 1, ws_stride(ea, m), ws_stride(eb, n),
                  m * n if c and c[0].dim() == 3 else 0, bk]
         args += [beta, n_slices] if narrow else [n_slices]
         args += [n_diag, EPILOGUES.index(epi), flags]
-        args += [variant] if narrow else []
+        args += [cv, f32_group(beta) if cv == 2 else 0] if narrow else []
         err = fn(*args, _build.stream(dev))
         if err:
             raise RuntimeError(
@@ -342,9 +366,9 @@ def ozgemm_kernel_call(*operands, bk: int, beta: int, n_slices: int,
     without it an operand is shared.  ``bk``, ``beta`` and ``n_slices`` are
     the plan's solved values.  ``slice_dtype_name`` / ``acc_dtype_name``:
     one of the pairs of ``SLICE_PAIRS`` -- f64/f64, bf16/f32, f32/f32,
-    bf16/f64, f32/f64 -- any other raises ``ValueError`` naming it.  Any
-    shape: ragged edges are the kernel's own business.  A slice count whose
-    shared memory exceeds what a Hopper block may hold raises
+    f16/f32, bf16/f64, f32/f64 -- any other raises ``ValueError`` naming
+    it.  Any shape: ragged edges are the kernel's own business.  A slice
+    count whose shared memory exceeds what a Hopper block may hold raises
     ``ValueError`` with the byte count.  ``workspace_bytes``: the K-panel
     budget of both operands' workspaces (``WORKSPACE_BYTES`` when None).
     Returns the nlimbs output limbs.

@@ -34,16 +34,20 @@ from ..core.ozaki import _extract_slices, _normalize_slices
 from . import _build
 
 __all__ = ["ozslice_call", "ozslice_plain", "launches", "STORAGE",
-           "kdepth", "rows_padded", "workspace_shapes"]
+           "CUDA_VARIANT", "kdepth", "rows_padded", "workspace_shapes"]
 
 # the slice variant (kernels.ozgemm.SLICE_PAIRS; None: f64 slices) -> the
 # type the workspace stores its slices in (f16 holds the <= 11-bit slices
 # of f32/f32 exactly)
 STORAGE = {None: torch.float64, 0: torch.bfloat16, 1: torch.float16,
-           2: torch.bfloat16, 3: torch.float32}
+           2: torch.bfloat16, 3: torch.float32, 4: torch.float16}
 # the normalized slices' type before storage (the reference's slice dtype)
 _SLICE = {0: torch.bfloat16, 1: torch.float32, 2: torch.bfloat16,
-          3: torch.float32}
+          3: torch.float32, 4: torch.float16}
+# the variant the CUDA sources build for a slice variant: f16/f32 (4) is
+# f32/f32's code, whose workspace already holds its slices as f16 (a slice
+# of either is exact in f16, so both store the same bits)
+CUDA_VARIANT = {None: -1, 0: 0, 1: 1, 2: 2, 3: 3, 4: 1}
 _TILE = 64  # rows of A (columns of B) per GEMM CTA
 
 # launches of csrc/ozslice.cu in this process, per limb count (never of
@@ -125,7 +129,7 @@ def _launch(limbs, rows, bk, beta, n_slices, variant, slab0, nslab, out):
              None if scales is None else scales.data_ptr(), r, k,
              slab0 * bk, nslab, entries, bk, ld_row, ld_k,
              lead.shape[-2] * lead.shape[-1] if lead.dim() == 3 else 0,
-             beta, n_slices, -1 if variant is None else variant,
+             beta, n_slices, CUDA_VARIANT[variant],
              _build.stream(lead.device))
     if err:
         raise RuntimeError(

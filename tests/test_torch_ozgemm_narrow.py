@@ -21,6 +21,7 @@ Tolerances:
 """
 
 import functools
+import math
 from fractions import Fraction
 
 import jax
@@ -38,8 +39,9 @@ from repro_torch.core import mp as tmp
 from repro_torch.core import ozaki as tozaki
 from repro_torch.core.accuracy import max_rel_err
 from repro_torch.interop import limbs_from_numpy, limbs_to_numpy
-from repro_torch.kernels.ozgemm import (SLICE_PAIRS, ozgemm_kernel_call,
-                                        ozgemm_plain)
+from repro_torch.kernels import ozslice
+from repro_torch.kernels.ozgemm import (SLICE_PAIRS, f32_group,
+                                        ozgemm_kernel_call, ozgemm_plain)
 
 pytestmark = pytest.mark.torch_port
 
@@ -166,6 +168,61 @@ def test_plain_matches_reference_slab_update(precision, sdt, adt, m, k, n,
     assert _bitwise(got, want)
 
 
+@pytest.mark.parametrize("precision", ["dd", "qd"])
+def test_f16_plain_matches_reference_slab_update(precision):
+    # the f16/f32 pair (the f32/f32 kernel's code on the same f16-held
+    # slices) against the reference's eager slab updates, epilogue full
+    m, k, n = 8, 33, 12
+    kw = _plan(m, k, n, precision, "float16", "float32")
+    tplan = tgemm.make_plan(m, k, n, precision=precision,
+                            backend="ozaki-pallas", slice_dtype="float16",
+                            acc_dtype="float32", platform="cpu")
+    assert (tplan.bk, tplan.slice_beta, tplan.n_slices) == \
+        (kw["bk"], kw["beta"], kw["n_slices"])
+    ops = {"alpha": _tier_scalar(1, 3, precision),
+           "beta_s": _tier_scalar(-1, 7, precision),
+           "c": _tier_limbs((m, n), precision, 43)}
+    with jax.disable_jit():
+        want = _reference_drain(
+            _j(_reference_acc(precision, "float16", "float32", m, k, n)),
+            *(_j(ops[x]) for x in ("alpha", "beta_s", "c")))
+    got = ozgemm_plain(_t(_tier_limbs((m, k), precision, 41), precision),
+                       _t(_tier_limbs((k, n), precision, 42), precision),
+                       slice_dtype_name="float16", acc_dtype_name="float32",
+                       **{x: _t(v, precision) for x, v in ops.items()}, **kw)
+    assert _bitwise(got, _t([np.asarray(l) for l in jmp.limbs(want)],
+                            precision))
+
+
+def test_f16_workspace_is_the_f32_workspace():
+    # f16/f32 launches the f32/f32 build (ozslice.CUDA_VARIANT): the two
+    # pairs' plans agree and their workspaces hold the same f16 bits, an
+    # f32/f32 slice being exact in f16
+    x = _t(_tier_limbs((19, 37), "td", 61), "td")
+    kw = _plan(19, 37, 23, "td", "float32", "float32")
+    assert kw == _plan(19, 37, 23, "td", "float16", "float32")
+    v16, v32 = SLICE_PAIRS["float16", "float32"], SLICE_PAIRS["float32",
+                                                              "float32"]
+    assert ozslice.CUDA_VARIANT[v16] == v32
+    for rows in (True, False):
+        w16 = ozslice.ozslice_plain(x, rows=rows, variant=v16, **kw)
+        w32 = ozslice.ozslice_plain(x, rows=rows, variant=v32, **kw)
+        assert w16[0].dtype == w32[0].dtype == torch.float16
+        assert torch.equal(w16[0].view(torch.int16),
+                           w32[0].view(torch.int16))
+        assert torch.equal(w16[1], w32[1])
+
+
+def test_f16_whole_k_ozaki_matches_reference():
+    # the whole-K ozaki backend takes the pair too, on CPU tensors, with
+    # the reference's bits
+    a, b = _tier_limbs((13, 7), "dd", 81), _tier_limbs((7, 9), "dd", 82)
+    kw = dict(backend="ozaki", slice_dtype="float16", acc_dtype="float32")
+    want = jgemm.matmul(_j(a), _j(b), use_cache=False, **kw)
+    got = tgemm.matmul(_t(a, "dd"), _t(b, "dd"), platform="cpu", **kw)
+    assert _bitwise(got, _t([np.asarray(l) for l in jmp.limbs(want)], "dd"))
+
+
 def _both_matmul(a_np, b_np, epilogue="none"):
     """The narrow plan through both engines' matmul (the reference's kernel
     in interpret mode, as its own tests run it)."""
@@ -223,23 +280,24 @@ def test_all_positive_worst_case_is_exact():
     assert max_rel_err(got, _t(_dd_np(exact), "dd")) < 16 * 64 * ULP["dd"]
 
 
-def _headroom_operand(shape, beta, seed):
-    """All-positive dd values in [1, 2) whose every slice digit is 2^(beta-1)
-    - 1 or one less: the largest all-positive digits that round-to-nearest
-    slicing leaves (slice 0 sits on the grid 2^(2-beta), below the anchor
-    2^1), so the f32 diagonal sums come as near their 24 bits as slicing
-    lets them."""
+def _headroom_operand(shape, beta, seed, nlimbs=2):
+    """All-positive tier values in [1, 2) (limbs as numpy) whose every slice
+    digit is 2^(beta-1) - 1 or one less: the largest all-positive digits
+    that round-to-nearest slicing leaves (slice 0 sits on the grid
+    2^(2-beta), below the anchor 2^1), so the diagonal sums come as near
+    their headroom as slicing lets them."""
     rng = np.random.default_rng(seed)
     top = 2 ** (beta - 1) - 1
-    n_digits = 1 + (106 - (beta - 1)) // beta  # what two f64 limbs hold
-    hi, lo = np.empty(shape), np.empty(shape)
+    n_digits = 1 + (53 * nlimbs - (beta - 1)) // beta  # what the limbs hold
+    limbs = [np.empty(shape) for _ in range(nlimbs)]
     for idx in np.ndindex(*shape):
         v = sum(Fraction(top - int(rng.integers(0, 2)) * (i > 0),
                          2 ** (i * beta)) for i in range(n_digits))
         v *= Fraction(2 ** 2, 2 ** beta)
-        hi[idx] = float(v)
-        lo[idx] = float(v - Fraction(hi[idx]))
-    return hi, lo
+        for l in limbs:
+            l[idx] = float(v)
+            v -= Fraction(l[idx])
+    return tuple(limbs)
 
 
 def test_adversarial_headroom_sums_are_exact():
@@ -270,8 +328,92 @@ def test_adversarial_headroom_sums_are_exact():
 
 @pytest.mark.parametrize("bk", [16, 32, 64])
 @pytest.mark.parametrize("precision", ["dd", "td", "qd"])
+def test_bf16_f64_groups_in_kernel_order_are_exact(precision, bk):
+    # bf16/f64: the kernel sums zero-C 16-deep MMA results in f32 groups of
+    # f32_group(beta), closing a group when the next step of two pairs could
+    # overfill it, and adds each group into the diagonal's f64 sum.  The
+    # group, in pairs, is the largest the 24-bit rule allows; in the
+    # kernel's order, on adversarial digits, every MMA result and every f32
+    # partial sum is exact and the f64 sums are ozgemm_plain's, bit for bit
+    nl = {"dd": 2, "td": 3, "qd": 4}[precision]
+    plan = tgemm.make_plan(16, bk, 16, precision=precision,
+                           backend="ozaki-pallas", bk=bk,
+                           slice_dtype="bfloat16", acc_dtype="float64",
+                           platform="cpu")
+    beta, ns = plan.slice_beta, plan.n_slices
+    assert plan.bk == bk and beta == 8
+    cap = f32_group(beta)
+    kp = ozslice.kdepth(bk, SLICE_PAIRS["bfloat16", "float64"])
+    pairs = cap // (kp // 16)
+
+    def rule(g):
+        return 2 * beta + math.ceil(math.log2(bk)) + math.ceil(math.log2(g))
+
+    assert rule(pairs) <= 24 < rule(2 * pairs)
+    a = _t(_headroom_operand((16, bk), beta, 3, nl), precision)
+    b = _t(_headroom_operand((bk, 16), beta, 4, nl), precision)
+    sk = dict(bk=bk, beta=beta, n_slices=ns, variant=2)
+    wa, _ = ozslice.ozslice_plain(a, rows=True, **sk)
+    wb, _ = ozslice.ozslice_plain(b, rows=False, **sk)
+    sa = [wa[0, 0, s, :16].double() for s in range(ns)]
+    sb = [wb[0, 0, t, :16].double() for t in range(ns)]
+    plain = tozaki.diagonal_sums(sa, [x.T for x in sb], ns, False,
+                                 torch.float64)
+    closes, top = 0, 0.0
+    for d, want in plain:
+        gs = torch.zeros(16, 16, dtype=torch.float32)
+        tot = torch.zeros(16, 16, dtype=torch.float64)
+        n = 0
+        lo, hi = max(0, d - ns + 1), min(d, ns - 1)
+        steps = [(s, s + 1) for s in range(lo, hi, 2) if s + 1 <= hi]
+        steps += [(s,) for s in range(lo + 2 * len(steps), hi + 1)]
+        for us in steps:
+            for kb in range(0, kp, 16):
+                for u in us:
+                    r = sa[u][:, kb:kb + 16] @ sb[d - u][:, kb:kb + 16].T
+                    assert torch.equal(r.float().double(), r)  # one MMA
+                    gs = gs + r.float()
+                n += len(us)
+                if n + 2 > cap:
+                    tot, gs, n = tot + gs.double(), gs * 0, 0
+                    closes += 1
+        if n:
+            tot = tot + gs.double()
+        assert torch.equal(tot, want), d
+        top = max(top, float(want.abs().max()) * 2.0 ** (2 * beta))
+    assert top < 2.0 ** 53
+    if precision != "dd" and bk == 16:
+        # diagonals of more than 16 pairs pass 2^24 grid units: one f32
+        # group would not hold them, and the kernel closed groups early
+        assert top > 2.0 ** 24 and closes > 0
+
+
+@pytest.mark.parametrize("sdt", ["float32", "float16"])
+def test_f32_accumulator_plans_keep_beta_within_f16(sdt):
+    # the f32/f32 and f16/f32 kernels hold their slices as f16 (11 bits):
+    # every plan the planner gives them has beta <= 11, at any depth,
+    # coverage target or slice count
+    for precision in ("dd", "td", "qd"):
+        for bk in (1, 2, 4, 16, 64, 256):
+            for extra in ({}, {"target_bits": 24}, {"n_slices": 1},
+                          {"n_slices": 2}):
+                plan = tgemm.make_plan(512, 512, 512, precision=precision,
+                                       backend="ozaki-pallas", bk=bk,
+                                       slice_dtype=sdt, acc_dtype="float32",
+                                       platform="cpu", **extra)
+                assert plan.slice_beta <= 11, (precision, bk, extra)
+    for precision in ("dd", "td"):  # whole K (no qd tier)
+        plan = tgemm.make_plan(8, 2, 8, precision=precision, backend="ozaki",
+                               slice_dtype=sdt, acc_dtype="float32",
+                               n_slices=1, platform="cpu")
+        assert plan.slice_beta <= 11
+
+
+@pytest.mark.parametrize("bk", [16, 32, 64])
+@pytest.mark.parametrize("precision", ["dd", "td", "qd"])
 def test_narrow_plans_match_reference_planner(precision, bk):
-    for sdt, adt in [*NARROW, ("float32", "float64"), ("bfloat16", None)]:
+    for sdt, adt in [*NARROW, ("float16", "float32"), ("float32", "float64"),
+                     ("bfloat16", None)]:
         jplan = jgemm.make_plan(256, 256, 256, precision=precision,
                                 backend="ozaki-pallas", bk=bk,
                                 slice_dtype=sdt, acc_dtype=adt,
@@ -286,7 +428,8 @@ def test_narrow_plans_match_reference_planner(precision, bk):
             {f: getattr(jplan, f) for f in keep}, (sdt, adt)
 
 
-@pytest.mark.parametrize("sdt,adt", [*NARROW, ("float32", "float64")])
+@pytest.mark.parametrize("sdt,adt", [*NARROW, ("float16", "float32"),
+                                     ("float32", "float64")])
 def test_batched_narrow_equals_looped(sdt, adt):
     a = _t(_tier_limbs((5, 20, 12), "td", 51), "td")
     b = _t(_tier_limbs((5, 12, 9), "td", 52), "td")
@@ -307,8 +450,30 @@ def test_batched_narrow_equals_looped(sdt, adt):
 
 def test_every_plan_pair_is_a_kernel_pair():
     # what make_plan can hand the kernel with narrow overrides is accepted
-    for sdt, adt in [*NARROW, ("float32", None), ("bfloat16", None)]:
+    for sdt, adt in [*NARROW, ("float16", "float32"), ("float32", None),
+                     ("bfloat16", None)]:
         plan = tgemm.make_plan(8, 8, 8, backend="ozaki-pallas",
                                slice_dtype=sdt, acc_dtype=adt,
                                platform="cpu")
         assert (plan.slice_dtype, plan.acc_dtype or "float64") in SLICE_PAIRS
+
+
+@pytest.mark.parametrize("sdt,adt", [("float16", None),
+                                     ("float64", "float32")])
+def test_pairs_the_kernel_still_refuses(sdt, adt):
+    # the reference's planner plans these, the kernel refuses them: f16
+    # slices with an f64 accumulator reach beta 22, past f16's 11 bits (the
+    # reference's f16 slices are rounded), and f64/f32 is an f64 slice dot
+    # typed to f32
+    jplan = jgemm.make_plan(8, 8, 8, backend="ozaki-pallas", use_cache=False,
+                            slice_dtype=sdt, acc_dtype=adt)
+    plan = tgemm.make_plan(8, 8, 8, backend="ozaki-pallas", slice_dtype=sdt,
+                           acc_dtype=adt, platform="cpu")
+    assert (plan.slice_beta, plan.n_slices) == (jplan.slice_beta,
+                                                jplan.n_slices)
+    if sdt == "float16":
+        assert plan.slice_beta > 11
+    a = _t(_tier_limbs((8, 8), "dd", 91), "dd")
+    with pytest.raises(ValueError, match="accumulator"):
+        tgemm.matmul(a, a, backend="ozaki-pallas", slice_dtype=sdt,
+                     acc_dtype=adt, platform="cpu")

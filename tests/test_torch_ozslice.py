@@ -180,11 +180,19 @@ def test_k_panels_equal_one_panel(sdt, adt):
     (16, 10, "float64", "float64", 10 * 128 * 20 * 8),
     # bf16 dd: 15 x 128 x (16 + 8) x 2 B and the 128 scales, two stages
     (16, 15, "bfloat16", "float32", 2 * (15 * 128 * 24 * 2 + 128 * 8)),
-    # bf16 td/qd, and the FMA variants (f32/f64: 4-byte slices, depth
-    # 32) at any size: one stage
+    # every variant runs two stages where two fit: f32/f32 and f16/f32
+    # (f16-held slices) and bf16/f64 at dd's 15 slices, f32/f64 (4-byte
+    # slices) at dd's 5 and td's 8
+    (16, 15, "float32", "float32", 2 * (15 * 128 * 24 * 2 + 128 * 8)),
+    (16, 15, "float16", "float32", 2 * (15 * 128 * 24 * 2 + 128 * 8)),
+    (16, 15, "bfloat16", "float64", 2 * (15 * 128 * 24 * 2 + 128 * 8)),
+    (16, 5, "float32", "float64", 2 * (5 * 128 * 24 * 4 + 128 * 8)),
+    (16, 8, "float32", "float64", 2 * (8 * 128 * 24 * 4 + 128 * 8)),
+    # one stage where two do not fit: bf16 td/qd, f32/f32 at qd's 32
+    # slices, f32/f64 at qd's 10 and at depth 32
     (16, 24, "bfloat16", "float32", 24 * 128 * 24 * 2 + 128 * 8),
     (16, 32, "float32", "float32", 32 * 128 * 24 * 2 + 128 * 8),
-    (16, 15, "bfloat16", "float64", 15 * 128 * 24 * 2 + 128 * 8),
+    (16, 10, "float32", "float64", 10 * 128 * 24 * 4 + 128 * 8),
     (17, 8, "float32", "float64", 8 * 128 * 40 * 4 + 128 * 8),
 ])
 def test_smem_bytes_is_the_stage_layout(bk, n_slices, sdt, adt, want):

@@ -6,15 +6,17 @@ PERF.md's kernel table, for whichever tree ``PYTHONPATH`` names.
 
 Rows, each one ``ozgemm_kernel_call`` (on a tree with the slicing
 pre-pass: pre-pass and GEMM together, then each apart), CUDA events over
-``--reps`` calls after one warm-up: f64 slices at dd 4096^3 and td/qd 2048^3, bf16/f32 slices at the
-same shapes, all with the epilogue full; and bf16/f32 at dd on the SDP's
-Schur stack, 99 x 50x50x50 with A shared, epilogue none (its ``--reps``
-times 20).  Operands are random tier values made on the card from a seed.
+``--reps`` calls after one warm-up: every (slice, accumulator) pair the
+tree's kernel takes (f64/f64, bf16/f32, f32/f32, f16/f32, bf16/f64,
+f32/f64; ``--pairs f64,bf16/f64`` picks some) at dd 4096^3 and td/qd
+2048^3, all with the epilogue full; and bf16/f32 at dd on the SDP's Schur
+stack, 99 x 50x50x50 with A shared, epilogue none (its ``--reps`` times
+20).  Operands are random tier values made on the card from a seed.
 
-``--diagonals 0,1,2,4,8,15`` adds, on a tree with the pre-pass, the dd
-GEMMs alone (f64 and bf16/f32, epilogue none) launched with only the
-first d diagonals of every slab: what streaming the workspace, the pair
-dots and the folds each cost.
+``--diagonals 0,1,2,4,8,15`` adds, on a tree with the pre-pass, each
+chosen pair's dd GEMM alone (epilogue none) launched with only the first
+d diagonals of every slab: what streaming the workspace, the pair dots
+and the folds each cost.
 
 Prints one JSON line: {"label", "card", "src", "rows": {row: ms}}.  To set
 two trees side by side, unpack the other with ``git archive`` under
@@ -28,10 +30,11 @@ import sys
 import threading
 import time
 
-ROWS = (("f64", "dd", 4096), ("f64", "td", 2048), ("f64", "qd", 2048),
-        ("bf16/f32", "dd", 4096), ("bf16/f32", "td", 2048),
-        ("bf16/f32", "qd", 2048))
-PAIRS = {"f64": ("float64", "float64"), "bf16/f32": ("bfloat16", "float32")}
+SHAPES = (("dd", 4096), ("td", 2048), ("qd", 2048))
+PAIRS = {"f64": ("float64", "float64"), "bf16/f32": ("bfloat16", "float32"),
+         "f32/f32": ("float32", "float32"), "f16/f32": ("float16", "float32"),
+         "bf16/f64": ("bfloat16", "float64"),
+         "f32/f64": ("float32", "float64")}
 
 
 def main() -> int:
@@ -39,6 +42,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--diagonals", default="")
+    ap.add_argument("--pairs", default=",".join(PAIRS))
     args = ap.parse_args()
     import torch
 
@@ -50,12 +54,20 @@ def main() -> int:
     from repro_torch.gemm import make_plan
     from repro_torch.kernels import _build, ozgemm
 
+    pairs = [x for x in args.pairs.split(",")
+             if PAIRS[x] in ozgemm.SLICE_PAIRS]  # what this tree takes
     # build what the rows launch, split sources apart (their variants)
     names = [n for n in _build.SOURCES if n in ("mpops", "ozslice", "ozgemm")]
+    try:  # f16/f32 runs f32/f32's build (older trees have no map)
+        from repro_torch.kernels.ozslice import CUDA_VARIANT
+    except ImportError:
+        CUDA_VARIANT = {}
+    variants = sorted({CUDA_VARIANT.get(v, v) for v in (
+        ozgemm.SLICE_PAIRS[PAIRS[x]] for x in pairs) if v is not None})
     t0 = time.perf_counter()
-    jobs = [threading.Thread(target=_build.build_all, args=(names,)),
-            threading.Thread(target=_build.build_all, args=(
-                ("ozgemm_narrow",),), kwargs={"variants": (0,)})]
+    jobs = [threading.Thread(target=_build.build_all, args=(names,))]
+    jobs += [threading.Thread(target=_build.build_all, args=(
+        ("ozgemm_narrow",),), kwargs={"variants": (v,)}) for v in variants]
     for j in jobs:
         j.start()
     for j in jobs:
@@ -139,7 +151,7 @@ def main() -> int:
                 if d <= kw["n_slices"]}
 
     rows = {}
-    for pair, p, n in ROWS:
+    for pair, (p, n) in ((x, y) for x in pairs for y in SHAPES):
         a, b, c = (rand_tier((n, n), p) for _ in range(3))
         ops = [*mp.limbs(a), *mp.limbs(b),
                *mp.limbs(scalar(1 / 3, p)), *mp.limbs(scalar(-1 / 7, p)),
